@@ -3,27 +3,45 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints lines tagged with its name; any failure exits
+non-zero):
   1. device  -- a CUDA device is required; prints nvidia-smi's name and
                 power limit.
-  2. build   -- builds kernel B1 (csrc/rns2_sliding.cu) with nvcc into
-                build/paillier_tpu_torch/ and prints the build time and
-                ptxas' register / shared-memory report.
-  3. kernel  -- kernel B1 against its plain torch version on the same
+  2. build   -- builds kernels B1 (csrc/rns2_sliding.cu) and B2
+                (csrc/rns2_modexp.cu), one nvcc each, both at once, into
+                build/paillier_tpu_torch/, and prints the build time and
+                ptxas' register and spill report of every instantiation.
+  3. kernel  -- each kernel against its plain torch version on the same
                 CUDA inputs: residues must be bit-identical (tolerance:
-                exact) at k = 64 (256-bit modulus) and at the main
-                path's shapes, 4096 rows at k = 320 (n^2 of a 2048-bit
-                key, with the fused G^m operand) and k = 192 (p^2); a
-                few rows must equal Python's pow.  Both are timed at
-                the main path's shapes.
-  4. main    -- the port's main path at full width: keygen(2048),
+                exact) and a few rows must equal Python's pow.
+                B1: k = 64 (256-bit modulus); the main path's shapes,
+                4096 rows at k = 320 (r^n * G^m mod n^2) and k = 192
+                (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3);
+                64 rows at k = 704 (a random odd 8192-bit modulus).
+                B2: shared and per-row digits at k = 64; per-row 2048-bit
+                exponents on 4096 rows at k = 320 (const_mult); 1024 rows
+                at k = 512 with the 1024 digits of level-1 ciphertexts
+                (nested_add).  Kernel and plain times are CUDA events.
+  4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
-                Decryptor(sk, crt=True, device="cuda") on all of them.
-                Every plaintext must round-trip, 16 ciphertexts must
-                equal (1 + m*n) * r^n mod n^2 computed on the host, and
-                the kernel's launch counter must show that both went
-                through kernel B1.
-Then one JSON line describing the kernel, and as the last line
+                Decryptor(sk, crt=True, device="cuda") on all of them:
+                every plaintext round-trips, 16 ciphertexts equal
+                (1 + m*n) * r^n mod n^2 on the host.
+  5. homomorphic -- level 1, batch 4096: add, sub, const_mult (shared
+                and per-element 2048-bit scalars), randomize, aggregate
+                over a 65,536-row tile, aggregate_streaming over 4 chunks,
+                Decryptor(crt=False) over all 4096.  Each result is
+                checked by CRT decryption against plaintext arithmetic
+                mod n, and 8 rows against the host formula.
+  6. level2  -- batch 1024: Encryptor(pk, 2) (8 rows equal
+                (1+n)^m * r^(n^2) mod n^3), Decryptor(sk, 2) round trip,
+                nested_encrypt -> nested_add / nested_sub /
+                nested_randomize -> nested_decrypt give x+y, x-y and x.
+Phases 4-6 each set the launch counters to 0 just before their
+operations and read them just after; a phase, or an operation in it,
+whose B1 and B2 launches differ from the exact count its entry points
+make fails.  Then one JSON line describing the kernels,
+the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -32,14 +50,19 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 BATCH = 4096           # bench.py's headline batch
+L2_BATCH = 1024        # level-2 batch
+AGG_TILE = 1 << 16     # bench.py's aggregation chunk
 KEY_BITS = 2048
 SEED = 2048
 WARM_ROWS = 64         # rows of the untimed first encrypt / decrypt
+HOST_ROWS = 8          # rows checked against the host formula
 
 
 def fail(msg: str) -> None:
@@ -60,25 +83,50 @@ def smi_name_power() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str) -> list[str]:
+    """'<wide,maxthreads,minblocks>: registers, spills' per instantiation
+    from nvcc -Xptxas -v output."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E", m.group(1))
+            name = f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t \
+                else m.group(1)
+        elif "registers" in ln or "spill" in ln:
+            out.append(f"{name} {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paillier_tpu_torch")):
         fail("paillier_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, here)
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
 
-    from paillier_tpu_torch import Decryptor, Encryptor, keygen
+    from paillier_tpu_torch import (Ciphertext, Decryptor, Encryptor,
+                                    homomorphic as hom, keygen,
+                                    nested_decrypt, nested_encrypt)
+    from paillier_tpu_torch.bigint import modexp_kernel as mx_mod
     from paillier_tpu_torch.bigint import sliding_kernel as sk_mod
+    from paillier_tpu_torch.bigint.montgomery import (exp_digits,
+                                                      limbs_to_digits,
+                                                      n_digits_for_bits)
     from paillier_tpu_torch.bigint.rns2 import (Rns2Engine,
                                                 sliding_window_schedule)
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
     b1 = sk_mod.rns2_pow_sliding_b1
-    plain = sk_mod.rns2_pow_sliding_plain
+    b1_plain = sk_mod.rns2_pow_sliding_plain
+    b2 = mx_mod.rns2_pow_b2
+    b2_plain = mx_mod.rns2_pow_plain
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
 
     # -- 1. device ---------------------------------------------------------
     card = smi_name_power()
@@ -89,34 +137,55 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    sk_mod.load()
-    ptxas = [ln.strip() for ln in sk_mod.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"kernel B1 built in {time.perf_counter() - t0:.2f} s; "
-          + " | ".join(ptxas))
+    with ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(sk_mod.load), pool.submit(mx_mod.load)]:
+            fut.result()
+    phase("build", f"kernels B1 and B2 built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, mod in (("B1", sk_mod), ("B2", mx_mod)):
+        for ln in ptxas_report(mod.build_log):
+            phase("build", f"{name}{ln}")
 
     # -- 3. kernel vs plain ------------------------------------------------
-    max_err = 0
-    n_cmp = 0
+    stats = {"B1": {"err": 0, "n": 0, "times": []},
+             "B2": {"err": 0, "n": 0, "times": []}}
 
-    def compare(eng, x, sched, window, fin, label):
-        nonlocal max_err, n_cmp
-        got = b1(eng.ctx, x, sched, window, fin=fin)
-        want = plain(eng.ctx, x, sched, window, fin=fin)
+    def compare(kname, run_kernel, run_plain, label, warm=False):
+        """Kernel and plain version on the same inputs: bit-identical, or
+        fail.  Times both with CUDA events (the kernel once more first
+        when ``warm``); returns the kernel's output."""
+        if warm:
+            run_kernel()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        got = run_kernel()
+        ev[1].record()
+        want = run_plain()
+        ev[2].record()
         torch.cuda.synchronize()
+        st = stats[kname]
         err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        n_cmp += 1
+        st["err"] = max(st["err"], err)
+        st["n"] += 1
         if not torch.equal(got, want):
-            fail(f"kernel B1 != plain ({label}): max |diff| {err}")
-        return got
+            fail(f"kernel {kname} != plain ({label}): max |diff| {err}")
+        ms, plain_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        if warm:                       # the slice's shapes
+            st["times"].append({"shape": label, "ms": ms,
+                                "plain_ms": plain_ms})
+        return got, ms, plain_ms
 
-    def check_pow(eng, xs, e, fs, got, rows, label):
+    def check_pow(eng, xs, es, fs, got, rows, label):
         N = eng.spec.N
-        want = [pow(x, e, N) * f % N for x, f in zip(xs[:rows], fs[:rows])]
+        want = [pow(x, e, N) * f % N
+                for x, e, f in zip(xs[:rows], es[:rows], fs[:rows])]
         if eng.decode(got[:rows]) != want:
-            fail(f"kernel B1 != Python pow ({label})")
+            fail(f"kernel output != Python pow ({label})")
 
+    def residues(eng, vals):
+        return eng.from_limbs(encode_batch(vals, eng.converter.L, device=dev))
+
+    # B1 and B2 at k = 64
     t0 = time.perf_counter()
     rng = random.Random(0x5EED)
     n256 = rng.getrandbits(256) | (1 << 255) | 1
@@ -127,60 +196,186 @@ def main() -> None:
     for window in (5, 6):
         for e in (1, 2, 3, rng.getrandbits(130) | (1 << 129)):
             sched = sliding_window_schedule(e, window)
-            got = compare(eng, x, sched, window, None, f"k=64 e={e} w={window}")
-            check_pow(eng, xs, e, [1] * 16, got, 16, f"k=64 w={window}")
+            got, _, _ = compare(
+                "B1", lambda: b1(eng.ctx, x, sched, window),
+                lambda: b1_plain(eng.ctx, x, sched, window),
+                f"k=64 e={e.bit_length()}-bit w={window}")
+            check_pow(eng, xs, [e] * 16, [1] * 16, got, 16, f"B1 k=64 w={window}")
         padded = list(sched) + [-2, -2, -2]
-        got = compare(eng, x, padded, window, fin, f"k=64 fin -2 w={window}")
-        check_pow(eng, xs, e, fs, got, 16, f"k=64 fin w={window}")
-    phase("kernel", f"k={eng.spec.k}: {n_cmp} ladders bit-identical to plain "
-          f"and to pow ({time.perf_counter() - t0:.1f} s)")
+        got, _, _ = compare(
+            "B1", lambda: b1(eng.ctx, x, padded, window, fin=fin),
+            lambda: b1_plain(eng.ctx, x, padded, window, fin=fin),
+            f"k=64 fin -2 w={window}")
+        check_pow(eng, xs, [e] * 16, fs, got, 16, f"B1 k=64 fin w={window}")
+    for window in (2, 4, 5):
+        e = rng.getrandbits(120) | (1 << 119)
+        nd = n_digits_for_bits(120, window)
+        shared = torch.as_tensor(exp_digits(e, window, nd), device=dev)
+        got, _, _ = compare("B2", lambda: b2(eng.ctx, x, shared, window),
+                            lambda: b2_plain(eng.ctx, x, shared, window),
+                            f"k=64 shared w={window}")
+        check_pow(eng, xs, [e] * 16, [1] * 16, got, 16, f"B2 k=64 w={window}")
+        es = [rng.getrandbits(120) for _ in range(15)] + [0]
+        per = torch.as_tensor(np.stack([exp_digits(v, window, nd)
+                                        for v in es]), device=dev)
+        got, _, _ = compare("B2", lambda: b2(eng.ctx, x, per, window),
+                            lambda: b2_plain(eng.ctx, x, per, window),
+                            f"k=64 per-row w={window}")
+        check_pow(eng, xs, es, [1] * 16, got, 16, f"B2 k=64 per-row w={window}")
+    phase("kernel", f"k=64: {stats['B1']['n']} B1 and {stats['B2']['n']} B2 "
+          f"ladders bit-identical to plain and to pow "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     skey, pk = keygen(KEY_BITS, random.Random(SEED))
     phase("main", f"keygen({KEY_BITS}) in {time.perf_counter() - t0:.2f} s")
+    dk = pk.device(dev)
 
-    def time_both(eng, x, sched, fin):
-        """CUDA-event ms of one kernel launch and one plain ladder."""
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        b1(eng.ctx, x, sched, 6, fin=fin)
-        ev[1].record()
-        plain(eng.ctx, x, sched, 6, fin=fin)
-        ev[2].record()
-        torch.cuda.synchronize()
-        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-
-    # the main path's ladder shapes: BATCH rows at k = 320 (r^n * G^m mod
-    # n^2, encryption) and at k = 192 (c^(p-1) mod p^2, one CRT half)
+    # B1 at the main path's shapes: k = 320 (r^n * G^m mod n^2) and k = 192
+    # (c^(p-1) mod p^2), BATCH rows
     t0 = time.perf_counter()
-    eng_n2 = pk.device(dev).rns(1)
+    eng_n2 = dk.rns(1)
     xs = [rng.randrange(1, pk.n2) for _ in range(BATCH)]
     fs = [rng.randrange(pk.n2) for _ in range(BATCH)]
-    L2 = eng_n2.converter.L
-    x = eng_n2.from_limbs(encode_batch(xs, L2, device=dev))
-    fin = eng_n2.from_limbs(encode_batch(fs, L2, device=dev))
+    x, fin = residues(eng_n2, xs), residues(eng_n2, fs)
     sched = sliding_window_schedule(pk.n, 6)
-    got = compare(eng_n2, x, sched, 6, fin, f"k={eng_n2.spec.k} r^n*fin")
-    check_pow(eng_n2, xs, pk.n, fs, got, 4, f"k={eng_n2.spec.k}")
-    kernel_ms, plain_ms = time_both(eng_n2, x, sched, fin)
-    phase("kernel", f"k={eng_n2.spec.k}, {BATCH} rows, e=n "
+    got, b1_ms, b1_plain_ms = compare(
+        "B1", lambda: b1(eng_n2.ctx, x, sched, 6, fin=fin),
+        lambda: b1_plain(eng_n2.ctx, x, sched, 6, fin=fin),
+        f"k={eng_n2.spec.k} rows={BATCH} e=n fin", warm=True)
+    check_pow(eng_n2, xs, [pk.n] * 4, fs, got, 4, "B1 k=320")
+    phase("kernel", f"B1 k={eng_n2.spec.k}, {BATCH} rows, e=n "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms")
 
     p2 = skey.p * skey.p
     eng_p2 = Rns2Engine(p2, device=dev)
     xs = [rng.randrange(1, p2) for _ in range(BATCH)]
-    x = eng_p2.from_limbs(encode_batch(xs, eng_p2.converter.L, device=dev))
+    x = residues(eng_p2, xs)
     sched = sliding_window_schedule(skey.p - 1, 6)
-    got = compare(eng_p2, x, sched, 6, None, f"k={eng_p2.spec.k} c^(p-1)")
-    check_pow(eng_p2, xs, skey.p - 1, [1] * 4, got, 4,
-              f"k={eng_p2.spec.k}")
-    k192_ms, k192_plain_ms = time_both(eng_p2, x, sched, None)
-    phase("kernel", f"k={eng_p2.spec.k}, {BATCH} rows, e=p-1 "
+    got, ms, plain_ms = compare(
+        "B1", lambda: b1(eng_p2.ctx, x, sched, 6),
+        lambda: b1_plain(eng_p2.ctx, x, sched, 6),
+        f"k={eng_p2.spec.k} rows={BATCH} e=p-1", warm=True)
+    check_pow(eng_p2, xs, [skey.p - 1] * 4, [1] * 4, got, 4, "B1 k=192")
+    phase("kernel", f"B1 k={eng_p2.spec.k}, {BATCH} rows, e=p-1 "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {k192_ms:.3f} ms, plain {k192_plain_ms:.3f} ms; "
-          f"{n_cmp} comparisons, max |diff| {max_err} "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+    # B1 wide: k = 512 (level-2 encryption's r^(n^2) mod n^3), k = 704
+    eng_n3 = dk.rns(2)
+    xs = [rng.randrange(1, pk.n3) for _ in range(L2_BATCH)]
+    x = residues(eng_n3, xs)
+    sched = sliding_window_schedule(pk.n2, 6)
+    got, b1w_ms, b1w_plain_ms = compare(
+        "B1", lambda: b1(eng_n3.ctx, x, sched, 6),
+        lambda: b1_plain(eng_n3.ctx, x, sched, 6),
+        f"k={eng_n3.spec.k} rows={L2_BATCH} e=n^2", warm=True)
+    check_pow(eng_n3, xs, [pk.n2] * 4, [1] * 4, got, 4, "B1 k=512")
+    phase("kernel", f"B1 k={eng_n3.spec.k}, {L2_BATCH} rows, e=n^2 mod n^3 "
+          f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
+          f"kernel {b1w_ms:.3f} ms, plain {b1w_plain_ms:.3f} ms")
+
+    n8192 = rng.getrandbits(8192) | (1 << 8191) | 1
+    eng_w = Rns2Engine(n8192, device=dev)
+    if eng_w.spec.k != 704:
+        fail(f"8192-bit modulus gave k={eng_w.spec.k}, expected 704")
+    xs = [rng.randrange(n8192) for _ in range(64)]
+    fs = [rng.randrange(n8192) for _ in range(64)]
+    x, fin = residues(eng_w, xs), residues(eng_w, fs)
+    e = rng.getrandbits(2048) | (1 << 2047)
+    sched = sliding_window_schedule(e, 6)
+    got, ms, plain_ms = compare(
+        "B1", lambda: b1(eng_w.ctx, x, sched, 6, fin=fin),
+        lambda: b1_plain(eng_w.ctx, x, sched, 6, fin=fin),
+        "k=704 rows=64 e=2048-bit fin", warm=True)
+    check_pow(eng_w, xs, [e] * 4, fs, got, 4, "B1 k=704")
+    phase("kernel", f"B1 k=704, 64 rows, 2048-bit e with fin "
+          f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del eng_w, x, fin
+
+    # B2 at the slice's shapes: per-row 2048-bit exponents at k = 320
+    # (const_mult), per-row ciphertext digits at k = 512 (nested_add)
+    xs = [rng.randrange(1, pk.n2) for _ in range(BATCH)]
+    es = [rng.randrange(pk.n) for _ in range(BATCH)]
+    x = residues(eng_n2, xs)
+    nd = n_digits_for_bits(max(v.bit_length() for v in es), 4)
+    per = torch.as_tensor(np.stack([exp_digits(v, 4, nd) for v in es]),
+                          device=dev)
+    got, b2_ms, b2_plain_ms = compare(
+        "B2", lambda: b2(eng_n2.ctx, x, per, 4),
+        lambda: b2_plain(eng_n2.ctx, x, per, 4),
+        f"k={eng_n2.spec.k} rows={BATCH} per-row {nd} digits", warm=True)
+    check_pow(eng_n2, xs, es, [1] * 4, got, 4, "B2 k=320")
+    phase("kernel", f"B2 k={eng_n2.spec.k}, {BATCH} rows, per-row {nd} "
+          f"digits: bit-identical to plain and to pow; kernel "
+          f"{b2_ms:.3f} ms, plain {b2_plain_ms:.3f} ms")
+
+    mrng = random.Random(SEED + 3)
+    c1 = Encryptor(pk, device=dev, rng=mrng).encrypt(
+        [mrng.randrange(pk.n) for _ in range(L2_BATCH)])
+    dig = limbs_to_digits(c1.c, 4)
+    es = decode_batch(c1.c)
+    xs = [rng.randrange(1, pk.n3) for _ in range(L2_BATCH)]
+    x = residues(eng_n3, xs)
+    got, b2w_ms, b2w_plain_ms = compare(
+        "B2", lambda: b2(eng_n3.ctx, x, dig, 4),
+        lambda: b2_plain(eng_n3.ctx, x, dig, 4),
+        f"k={eng_n3.spec.k} rows={L2_BATCH} per-row {dig.shape[-1]} digits",
+        warm=True)
+    check_pow(eng_n3, xs, es, [1] * 4, got, 4, "B2 k=512")
+    phase("kernel", f"B2 k={eng_n3.spec.k}, {L2_BATCH} rows, per-row "
+          f"{dig.shape[-1]} digits of level-1 ciphertexts: bit-identical "
+          f"to plain and to pow; kernel {b2w_ms:.3f} ms, plain "
+          f"{b2w_plain_ms:.3f} ms; comparisons B1 {stats['B1']['n']}, "
+          f"B2 {stats['B2']['n']}, max |diff| "
+          f"{max(stats['B1']['err'], stats['B2']['err'])} "
           f"({time.perf_counter() - t0:.1f} s)")
+    del x, got
+
+    launches = {"B1": 0, "B2": 0}
+    op_s: dict = {}
+
+    def timed(name, fn, b1_want, b2_want=0):
+        """fn() between two synchronisations; its seconds go to op_s.
+        Fails unless fn launched B1 and B2 exactly as often as its
+        entry point does (b1_want, b2_want)."""
+        before = (b1.launches, b2.launches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        op_s[name] = time.perf_counter() - t
+        got = (b1.launches - before[0], b2.launches - before[1])
+        if got != (b1_want, b2_want):
+            fail(f"{name} launched (B1, B2) {got}, expected "
+                 f"{(b1_want, b2_want)}: an operation bypassed its kernel")
+        return res
+
+    def op_line():
+        line = ", ".join(f"{k} {v:.4f}" for k, v in op_s.items())
+        op_s.clear()
+        return line
+
+    def run_path(name, ops, want):
+        """Counters to 0, ops(), counters read; fail unless each kernel
+        was launched exactly ``want[kname]`` times (the count its entry
+        points make).  Returns (result, seconds)."""
+        b1.launches = b2.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ops()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        got = {"B1": b1.launches, "B2": b2.launches}
+        if got != want:
+            fail(f"{name} launched {got}, expected {want}: an operation "
+                 f"bypassed its kernel")
+        for kname in got:
+            launches[kname] += got[kname]
+        phase(name, f"{dt:.4f} s; launches B1 {got['B1']}, B2 {got['B2']}")
+        return res, dt
 
     # -- 4. main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -193,23 +388,12 @@ def main() -> None:
     phase("main", f"Encryptor + Decryptor built and warmed in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    b1.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ct = enc.encrypt(ms, rs)
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    enc_launches = b1.launches
-    t0 = time.perf_counter()
-    out = dec.decrypt(ct)                 # decode_batch synchronises
-    t_dec = time.perf_counter() - t0
-    launches = b1.launches
-    dec_launches = launches - enc_launches
-
-    if enc_launches < 1 or dec_launches < 2:
-        fail(f"main path bypassed kernel B1: {enc_launches} launches in "
-             f"encryption, {dec_launches} in decryption")
-    if tuple(ct.c.shape) != (BATCH, 2 * pk.device(dev).L):
+    # one B1 ladder for r^n; two for CRT decryption (c^(p-1), c^(q-1))
+    ct, t_enc = run_path("main", lambda: enc.encrypt(ms, rs),
+                         {"B1": 1, "B2": 0})
+    out, t_dec = run_path("main", lambda: dec.decrypt(ct),
+                          {"B1": 2, "B2": 0})
+    if tuple(ct.c.shape) != (BATCH, 2 * dk.L):
         fail(f"ciphertext shape {tuple(ct.c.shape)}")
     if out != ms:
         bad = sum(a != b for a, b in zip(out, ms))
@@ -218,23 +402,149 @@ def main() -> None:
             for m, r in zip(ms[:16], rs[:16])]
     if decode_batch(ct.c[:16]) != host:
         fail("ciphertexts differ from (1 + m*n) * r^n mod n^2")
-    phase("main", f"B1 launches: {enc_launches} in encryption, "
-          f"{dec_launches} in CRT decryption")
     phase("main", f"encrypt {BATCH} x {KEY_BITS}-bit: {t_enc:.4f} s, "
           f"{BATCH / t_enc:.1f} enc/s; CRT decrypt: {t_dec:.4f} s, "
           f"{BATCH / t_dec:.1f} dec/s; all {BATCH} round-trip, 16 equal "
           f"the host formula")
 
-    print(json.dumps({"kernels": [{
-        "name": "rns2_sliding",
-        "route": "cuda",
-        "source": "paillier_tpu_torch/csrc/rns2_sliding.cu",
-        "replaces": "paillier_tpu/bigint/pallas_rns2.py:185",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    # -- 5. homomorphic, level 1 -------------------------------------------
+    t0 = time.perf_counter()
+    n, n2 = pk.n, pk.n2
+    hrng = random.Random(SEED + 4)
+    xs = [hrng.randrange(n) for _ in range(BATCH)]
+    ys = [hrng.randrange(n) for _ in range(BATCH)]
+    cx, cy = enc.encrypt(xs), enc.encrypt(ys)
+    k_shared = hrng.randrange(n)
+    ks = [hrng.randrange(n) for _ in range(BATCH)]
+    zrng = random.Random(SEED + 5)
+    z_state = zrng.getstate()
+    tile = Ciphertext(c=cx.c.repeat(AGG_TILE // BATCH, 1))
+    chunks = [Ciphertext(c=part) for part in tile.c.chunk(4)]
+    cx_h, cy_h = decode_batch(cx.c[:HOST_ROWS]), decode_batch(cy.c[:HOST_ROWS])
+    phase("homomorphic", f"inputs: 2 x {BATCH} encryptions, a {AGG_TILE}-row "
+          f"tile ({time.perf_counter() - t0:.2f} s)")
+
+    def hom_ops():
+        # add, sub and the aggregates are RNS products in plain torch
+        return dict(
+            add=timed("add", lambda: hom.add(pk, cx, cy), 0),
+            sub=timed("sub", lambda: hom.sub(pk, cx, cy), 0),
+            cm_shared=timed("const_mult shared",
+                            lambda: hom.const_mult(pk, cx, k_shared), 1),
+            cm_per=timed("const_mult per-element",
+                         lambda: hom.const_mult(pk, cx, ks), 0, 1),
+            rnd=timed("randomize", lambda: hom.randomize(pk, cx, zrng), 1),
+            agg=timed("aggregate", lambda: hom.aggregate(pk, tile), 0),
+            stream=timed("aggregate_streaming",
+                         lambda: hom.aggregate_streaming(pk, chunks), 0),
+            plain=timed("Decryptor(crt=False)", lambda: Decryptor(
+                skey, device=dev).decrypt_array(cx), 1))
+
+    res, t_hom = run_path("homomorphic", hom_ops, {"B1": 3, "B2": 1})
+    phase("homomorphic", f"seconds: {op_line()}")
+    zrng.setstate(z_state)
+    zr = random_units(n, HOST_ROWS, zrng)
+    agg_sum = sum(xs) * (AGG_TILE // BATCH) % n
+    agg_host = 1
+    for c in decode_batch(tile.c):
+        agg_host = agg_host * c % n2
+    checks = [
+        ("add", res["add"], [(a + b) % n for a, b in zip(xs, ys)],
+         [a * b % n2 for a, b in zip(cx_h, cy_h)]),
+        ("sub", res["sub"], [(a - b) % n for a, b in zip(xs, ys)],
+         [a * pow(b, -1, n2) % n2 for a, b in zip(cx_h, cy_h)]),
+        ("const_mult shared", res["cm_shared"], [a * k_shared % n for a in xs],
+         [pow(a, k_shared, n2) for a in cx_h]),
+        ("const_mult per-element", res["cm_per"],
+         [a * k % n for a, k in zip(xs, ks)],
+         [pow(a, k, n2) for a, k in zip(cx_h, ks)]),
+        ("randomize", res["rnd"], xs,
+         [a * pow(r, n, n2) % n2 for a, r in zip(cx_h, zr)]),
+    ]
+    for name, got, want, host in checks:
+        if dec.decrypt(got) != want:
+            fail(f"homomorphic {name}: decryption != plaintext arithmetic")
+        if decode_batch(got.c[:HOST_ROWS]) != host:
+            fail(f"homomorphic {name}: ciphertexts != host formula")
+    for name in ("agg", "stream"):
+        got = res[name]
+        if dec.decrypt(Ciphertext(c=got.c[None])) != [agg_sum]:
+            fail(f"homomorphic {name}: decryption != sum of the tile")
+        if decode_batch(got.c[None]) != [agg_host]:
+            fail(f"homomorphic {name}: != host product of the tile")
+    if decode_batch(res["plain"]) != xs:
+        fail("Decryptor(crt=False) != plaintexts")
+    phase("homomorphic", f"add, sub, const_mult (shared, per-element), "
+          f"randomize on {BATCH}, aggregate over {AGG_TILE} and "
+          f"aggregate_streaming over 4 chunks, Decryptor(crt=False) on "
+          f"{BATCH}: every check passed "
+          f"({time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 6. level 2 --------------------------------------------------------
+    t0 = time.perf_counter()
+    lrng = random.Random(SEED + 6)
+    n3 = pk.n3
+    m2 = [lrng.randrange(n2) for _ in range(L2_BATCH)]
+    r2 = random_units(n, L2_BATCH, lrng)
+    xs = [lrng.randrange(n) for _ in range(L2_BATCH)]
+    ys = [lrng.randrange(n) for _ in range(L2_BATCH)]
+    enc2 = Encryptor(pk, 2, device=dev, rng=lrng)
+    dec2 = Decryptor(skey, 2, device=dev)
+    yct = enc.encrypt(ys)
+    phase("level2", f"set-up {time.perf_counter() - t0:.2f} s")
+
+    def l2_ops():
+        # nested_encrypt: one B1 ladder per level; nested_randomize: a^n
+        # and b^(n^2) on B1, ct^(a^n) on B2; nested_decrypt: the
+        # generic decryption at level 2, then at level 1
+        c2 = timed("encrypt", lambda: enc2.encrypt(m2, r2), 1)
+        back = timed("decrypt", lambda: dec2.decrypt(c2), 1)
+        nx = timed("nested_encrypt",
+                   lambda: nested_encrypt(pk, xs, lrng, device=dev), 2)
+        na = timed("nested_add", lambda: hom.nested_add(pk, nx, yct), 0, 1)
+        ns = timed("nested_sub", lambda: hom.nested_sub(pk, nx, yct), 0, 1)
+        nr = timed("nested_randomize",
+                   lambda: hom.nested_randomize(pk, nx, lrng)[0], 2, 1)
+        return dict(c2=c2, back=back,
+                    add=timed("nested_decrypt",
+                              lambda: nested_decrypt(skey, na, device=dev), 2),
+                    sub=timed("nested_decrypt (sub)",
+                              lambda: nested_decrypt(skey, ns, device=dev), 2),
+                    rnd=timed("nested_decrypt (randomize)",
+                              lambda: nested_decrypt(skey, nr, device=dev), 2))
+
+    res, t_l2 = run_path("level2", l2_ops, {"B1": 12, "B2": 3})
+    phase("level2", f"seconds ({L2_BATCH} rows): {op_line()}")
+    host = [pow(1 + n, m, n3) * pow(r, n2, n3) % n3
+            for m, r in zip(m2[:HOST_ROWS], r2[:HOST_ROWS])]
+    if decode_batch(res["c2"].c[:HOST_ROWS]) != host:
+        fail("level-2 ciphertexts != (1+n)^m * r^(n^2) mod n^3")
+    if res["back"] != m2:
+        fail("Decryptor(sk, 2) did not round-trip")
+    if res["add"] != [(a + b) % n for a, b in zip(xs, ys)]:
+        fail("nested_add did not decrypt to x + y")
+    if res["sub"] != [(a - b) % n for a, b in zip(xs, ys)]:
+        fail("nested_sub did not decrypt to x - y")
+    if res["rnd"] != xs:
+        fail("nested_randomize did not decrypt to x")
+    phase("level2", f"Encryptor(pk, 2) + Decryptor(sk, 2) on {L2_BATCH} "
+          f"(8 equal the host formula), nested_encrypt -> nested_add / "
+          f"nested_sub / nested_randomize -> nested_decrypt: every check "
+          f"passed ({time.perf_counter() - t0:.1f} s in all)")
+    phase("done", f"total {time.perf_counter() - t_start:.1f} s")
+
+    def entry(kname, name, source, replaces, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[kname],
+                "max_abs_err": stats[kname]["err"], "ms": ms,
+                "plain_ms": plain_ms, "times": stats[kname]["times"]}
+
+    print(json.dumps({"kernels": [
+        entry("B1", "rns2_sliding", "paillier_tpu_torch/csrc/rns2_sliding.cu",
+              "paillier_tpu/bigint/pallas_rns2.py:185", b1_ms, b1_plain_ms),
+        entry("B2", "rns2_modexp", "paillier_tpu_torch/csrc/rns2_modexp.cu",
+              "paillier_tpu/bigint/pallas_rns2.py:52", b2_ms, b2_plain_ms),
+    ]}), flush=True)
     print(f"nvidia-smi: {smi_name_power()}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,43 @@
 """paillier_tpu_torch: the PyTorch / CUDA port of paillier_tpu.
 
-Paillier encryption on torch tensors, with the exponent ladder as a
-hand-written CUDA kernel for NVIDIA Hopper (sm_90a).  The JAX package
-``paillier_tpu`` is the reference it is held against, bit for bit; this
-package never imports JAX.
+Paillier / Damgard-Jurik encryption on torch tensors, with the exponent
+ladders as hand-written CUDA kernels for NVIDIA Hopper (sm_90a).  The JAX
+package ``paillier_tpu`` is the reference it is held against, bit for
+bit; this package never imports JAX.
 
-Ported so far: key generation, regular encryption at level 1
-(``Encryptor``) and CRT decryption at level 1 (``Decryptor(crt=True)``),
-on the CPU (plain torch) or on a CUDA device (kernel B1, built from
-``csrc/`` with nvcc at first use).  Every entry point takes an explicit
-``device``.
+Ported so far: key generation, regular encryption at levels 1 and 2 and
+nested encryption, generic decryption at levels 1 and 2, CRT decryption
+at level 1 and nested decryption, and the homomorphic operations
+(``homomorphic.add``, ``sub``, ``const_mult``, ``randomize``,
+``aggregate``, ``aggregate_streaming`` and the nested ones), on the CPU
+(plain torch) or on a CUDA device (kernels B1 and B2, built from
+``csrc/`` with nvcc at first use).  The names are the JAX package's.
+Entry points that make ciphertexts take an explicit ``device``; the
+homomorphic operations work on the device of their ciphertexts.
 
     import random
-    from paillier_tpu_torch import keygen, Encryptor, Decryptor
+    from paillier_tpu_torch import (Ciphertext, Decryptor, Encryptor,
+                                    homomorphic, keygen)
     sk, pk = keygen(2048, random.Random(1))
     ct = Encryptor(pk, device="cuda").encrypt([1, 2, 3])
-    Decryptor(sk, crt=True, device="cuda").decrypt(ct)   # [1, 2, 3]
+    total = homomorphic.aggregate(pk, ct)
+    Decryptor(sk, crt=True, device="cuda").decrypt(
+        Ciphertext(c=total.c[None]))                      # [6]
 """
 
-from .core.decrypt import Decryptor
-from .core.encrypt import Encryptor
+from .bigint import host, montgomery, vpu
+from .config import Config, get_config, set_config
+from .core import homomorphic
+from .core.decrypt import Decryptor, decrypt_nested_layer, nested_decrypt
+from .core.encrypt import Encryptor, nested_encrypt
 from .core.keygen import keygen
-from .core.keys import (LEVEL_ONE, REGULAR, Ciphertext, DeviceKey,
-                        PublicKey, SecretKey)
+from .core.keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
+                        MIXED, REGULAR, Ciphertext, DeviceKey, PublicKey,
+                        SecretKey, decode_batch, encode_batch)
 
-__all__ = ["keygen", "Encryptor", "Decryptor", "Ciphertext", "DeviceKey",
-           "PublicKey", "SecretKey", "LEVEL_ONE", "REGULAR"]
+__all__ = ["host", "montgomery", "vpu", "Config", "get_config", "set_config",
+           "homomorphic", "Decryptor", "decrypt_nested_layer",
+           "nested_decrypt", "Encryptor", "nested_encrypt", "keygen",
+           "ALTERNATIVE", "DEFAULT_LEVEL", "LEVEL_ONE", "LEVEL_TWO", "MIXED",
+           "REGULAR", "Ciphertext", "DeviceKey", "PublicKey", "SecretKey",
+           "decode_batch", "encode_batch"]

@@ -29,10 +29,12 @@ digit outputs (_red_fast) in (-(m + ~820), m + ~820), residue outputs
 in magnitude with lambda = k*2^10; the spec enforces M >= lambda^2 * N
 and M2 >= 8*lambda*N (see the JAX module for the full derivation).
 
-The shared-exponent ladder is the hot path: :func:`rns2_pow_sliding`
-sends a CUDA tensor to the hand-written kernel
-(``sliding_kernel.rns2_pow_sliding_b1``) and a CPU tensor to
-:func:`rns2_pow_sliding_plain`.
+The ladders are the hot paths, each a hand-written kernel on a CUDA
+tensor and its plain version on a CPU tensor: :func:`rns2_pow_sliding`
+(shared exponent, sliding window: ``sliding_kernel.rns2_pow_sliding_b1``
+or :func:`rns2_pow_sliding_plain`) and :func:`rns2_pow` (fixed window,
+shared or per-element exponents: ``modexp_kernel.rns2_pow_b2`` or
+:func:`rns2_pow_plain`).
 """
 
 from __future__ import annotations
@@ -273,7 +275,7 @@ class Rns2Spec:
 
 
 # ---------------------------------------------------------------------------
-# Math core (the CUDA kernel computes exactly this; see csrc/rns2_sliding.cu)
+# Math core (the CUDA kernels compute exactly this; see csrc/rns2_mont.cuh)
 # ---------------------------------------------------------------------------
 
 def _red(v, m, inv_m):
@@ -419,6 +421,63 @@ def rns2_mont_mul_values(ctx: Rns2Context, x, y, lazy: bool = False):
     """Full-width [..., C] wrapper around the pair core."""
     w1, w2 = rns2_mont_mul_pair(ctx, _split(ctx, x), _split(ctx, y), lazy)
     return torch.cat([w1, w2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-window exponentiation (shared or per-element exponents)
+# ---------------------------------------------------------------------------
+
+def rns2_pow_plain(ctx: Rns2Context, x, digits, window: int = 4):
+    """x^e mod N by the fixed 2^window-ary ladder, in plain torch.
+
+    Mirrors ``paillier_tpu.bigint.rns2.rns2_pow_jnp`` multiply for
+    multiply: the table [1_M, xm, xm^2, ..., xm^(2^w - 1)] (each entry
+    the previous one times xm), acc = 1_M, then per digit ``window``
+    squarings and one multiply by table[d] (d = 0 included), and an exit
+    multiply by 1 with exact reductions.  x: [..., C] standard-form
+    residues; digits: int [D] shared or [..., D] per element, MSB-first
+    base-2^window.  Output: canonical residues of a value < lambda*N.
+    """
+    digits = torch.as_tensor(digits)
+    per_element = digits.dim() > 1
+    entry = _const_row(ctx, I1_ENTRY, I2_ENTRY)
+    onem = _const_row(ctx, I1_ONEM, I2_ONEM)
+    one = _const_row(ctx, I1_ONE, I2_ONE)
+
+    xm = rns2_mont_mul_values(ctx, x, entry.expand(x.shape), lazy=True)
+    one_m = onem.expand(x.shape)
+    tbl = [one_m, xm]
+    for _ in range(2, 1 << window):
+        tbl.append(rns2_mont_mul_values(ctx, tbl[-1], xm, lazy=True))
+
+    acc = one_m
+    if per_element:
+        lead = torch.broadcast_shapes(x.shape[:-1], digits.shape[:-1])
+        C = x.shape[-1]
+        stack = torch.stack([t.expand(lead + (C,)).reshape(-1, C)
+                             for t in tbl])                  # [2^w, R, C]
+        dig = digits.to(x.device).expand(lead + digits.shape[-1:]
+                                         ).reshape(-1, digits.shape[-1])
+        rows = torch.arange(dig.shape[0], device=x.device)
+        acc = one_m.expand(lead + (C,))
+        for i in range(dig.shape[-1]):
+            for _ in range(window):
+                acc = rns2_mont_mul_values(ctx, acc, acc, lazy=True)
+            t = stack[dig[:, i].long(), rows].reshape(lead + (C,))
+            acc = rns2_mont_mul_values(ctx, acc, t, lazy=True)
+    else:
+        for d in digits.cpu().tolist():
+            for _ in range(window):
+                acc = rns2_mont_mul_values(ctx, acc, acc, lazy=True)
+            acc = rns2_mont_mul_values(ctx, acc, tbl[d], lazy=True)
+    return rns2_mont_mul_values(ctx, acc, one.expand(acc.shape))
+
+
+def rns2_pow(ctx: Rns2Context, x, digits, window: int = 4):
+    """Dispatcher: kernel B2 for a CUDA tensor, the plain ladder for a CPU
+    tensor (the wrapper decides by the tensor's device)."""
+    from .modexp_kernel import rns2_pow_b2
+    return rns2_pow_b2(ctx, x, digits, window)
 
 
 # ---------------------------------------------------------------------------
@@ -667,10 +726,19 @@ class Rns2Engine:
         one int8 product (to_limbs) plus an O(L) small-quotient Barrett."""
         return barrett_small(self.to_limbs(x), self.barrett)
 
+    def mont_mul(self, x, y):
+        """x * y * M^-1 mod N (one exact Montgomery multiply)."""
+        return rns2_mont_mul_values(self.ctx, x, y)
+
     def mul(self, x, y):
         """Plain modular product (fix the M^-1 with the entry factor)."""
         t = rns2_mont_mul_values(self.ctx, x, y)
         return rns2_mont_mul_values(self.ctx, t, self.m2_rns.expand(t.shape))
+
+    def pow(self, x, digits, window: int = 4):
+        """x^e by the fixed-window ladder; ``digits`` int [D] shared or
+        [B, D] per element, MSB-first base-2^window."""
+        return rns2_pow(self.ctx, x, digits, window)
 
     def pow_shared(self, x, e: int, window: int | None = None, fin=None):
         """x^e (times ``fin`` when given, at no extra multiply) for a

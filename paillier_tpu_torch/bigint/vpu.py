@@ -99,6 +99,13 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=-1)
 
 
+def one_like(a: torch.Tensor) -> torch.Tensor:
+    """The limbs of 1, with a's shape, dtype and device."""
+    one = torch.zeros_like(a)
+    one[..., 0] = 1
+    return one
+
+
 # ---------------------------------------------------------------------------
 # Multiplication
 # ---------------------------------------------------------------------------

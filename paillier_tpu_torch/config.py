@@ -2,7 +2,10 @@
 
 The JAX package's ``Config`` also carries TPU knobs (Pallas batch block,
 lane-padding ablation, forced-RNS switch, engine kind); none of them has
-a meaning on the GPU, so the port keeps only the ladder windows.
+a meaning on the GPU, so the port keeps only the sliding-ladder window.
+Its ``window`` (the fixed-window digit width) is not kept either: kernel
+B2's only callers, the per-element exponents of ``const_mult`` and the
+nested operations, use the JAX default of 4 (``homomorphic.B2_WINDOW``).
 """
 
 from __future__ import annotations
@@ -14,14 +17,10 @@ from dataclasses import dataclass
 class Config:
     """Port-wide tunables.
 
-    window:         fixed-window ladder digit width (bits) for
-                    per-element exponents; kept on Encryptor/Decryptor
-                    for the fixed-window kernel B2 (not ported yet).
     sliding_window: window for the shared-exponent sliding-window
                     odd-power ladder (the r^n / c^(p-1) hot paths).
     """
 
-    window: int = 4
     sliding_window: int = 6
 
 

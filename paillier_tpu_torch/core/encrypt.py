@@ -1,16 +1,19 @@
 """Batched encryption (reference: paillier.go:185-289).
 
-Regular encryption at level 1:  c = G^m * r^n mod n^2   (G = n+1)
+Regular encryption:  c = G^m * r^(n^s) mod n^(s+1)   (G = n+1, s = 1, 2)
+Nested encryption:   Enc_2(Enc_1(m).c)
 
-G^m = 1 + m*n is computed in residue space (one multiply-add and one
-exact reduction per channel) and multiplied into r^n by the ladder's
-mandatory exit multiply, so encryption is one sliding-window ladder:
-kernel B1 on a CUDA tensor.  The port takes the RNS engine at every key
-size; the JAX package's limb-Montgomery branch for small keys is not
-ported.
+G^m uses the binomial identity (1+n)^m = 1 + m*n (+ C(m,2)*n^2) mod
+n^(s+1): constant-operand limb products (int8 Toeplitz matmuls,
+:mod:`limbmm`) instead of a modexp.  The reference does the full modexp
+(paillier.go:213); the outputs are bit-identical.  r^(n^s) is the
+shared-exponent sliding-window ladder (kernel B1 on a CUDA tensor), and
+G^m rides its exit multiply: at level 1 G^m = 1 + m*n is made in residue
+space, at level 2 in limbs and converted once.  The port takes the RNS
+engine at every key size; the JAX package's limb-Montgomery branch for
+small keys is not ported.
 
-Not ported yet: level-2 (Damgard-Jurik s=2) encryption (ROADMAP A.7),
-alternative encryption h_s^r (ROADMAP A.8), nested encryption (A.7).
+Not ported yet: alternative encryption h_s^r (ROADMAP A.8, kernel B3).
 """
 
 from __future__ import annotations
@@ -19,9 +22,55 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..bigint import limbmm as lm
+from ..bigint import vpu
 from ..ops import random as prand
-from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, REGULAR,
+from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, REGULAR,
                    Ciphertext, DeviceKey, PublicKey, encode_batch)
+
+
+def gm_binomial(dk: DeviceKey, m: torch.Tensor, level: int) -> torch.Tensor:
+    """(1+n)^m mod n^(s+1) for plaintext limbs m < n^s.
+
+    Level 1: 1 + m*n (exact, < n^2; m [..., L] -> [..., 2L]).
+    Level 2: 1 + m*n + C(m,2)*n^2 mod n^3, with C(m,2) taken mod n
+    (m [..., 2L] -> [..., 3L]).
+    """
+    L = dk.L
+    n = dk.pk.n
+    if level == LEVEL_ONE:
+        t = lm.const_mul(m, dk.const_mul_plan(n, L, 2 * L))
+        c, _ = vpu.add(t, vpu.one_like(t))
+        return c
+    t1 = lm.const_mul(m, dk.const_mul_plan(n, 2 * L, 3 * L))   # m*n < n^3
+    br_n = dk.barrett_plan(n)
+    mr = lm.fold_mod(m, dk.fold_plan(n, 2 * L), br_n)          # m mod n
+    one = vpu.one_like(mr)
+    mr_minus, borrow = vpu.sub(mr, one)                        # (m-1) mod n
+    n_l = br_n.n_limbs_arr[:mr.shape[-1]].expand(mr.shape)
+    mr_minus = torch.where((borrow != 0).unsqueeze(-1),
+                           vpu.sub(n_l, one)[0], mr_minus)
+    prod = vpu.mul(mr, mr_minus, 2 * L)                        # < n^2
+    b2 = lm.modmul_const(prod, dk.inv2_n_plan(), br_n)         # C(m,2) mod n
+    t2 = lm.const_mul(b2, dk.const_mul_plan(dk.pk.n2, L, 3 * L))
+    s12, c12 = vpu.add(t1, t2)
+    s12 = torch.cat([s12, c12.unsqueeze(-1)], dim=-1)          # width 3L+1
+    c, _ = vpu.add(s12, vpu.one_like(s12))
+    n3 = encode_batch([dk.pk.n3], 3 * L + 1, device=c.device)[0]
+    return vpu.cond_sub(c, n3.expand(c.shape))[..., :3 * L]
+
+
+def encrypt_with_r_rns_kernel(dk: DeviceKey, eng, m: torch.Tensor,
+                              r: torch.Tensor, level: int, ns_exp: int
+                              ) -> torch.Tensor:
+    """c = G^m * r^(n^s) mod n^(s+1): G^m by the binomial shortcut in
+    limbs, r^(n^s) on the sliding-window ladder with G^m as its exit
+    multiplicand.  m: limbs [..., sL]; r: limbs [..., (s+1)L].  The JAX
+    function multiplies G^m in afterwards (``eng.mul``); the integer, and
+    so every output limb, is the same."""
+    gm = gm_binomial(dk, m, level)
+    c_rns = eng.pow_shared(eng.from_limbs(r), ns_exp, fin=eng.from_limbs(gm))
+    return dk._widen(eng.to_limbs_mod(c_rns), level)
 
 
 def encrypt_with_r_rns_fused_kernel(dk: DeviceKey, eng, nrow: torch.Tensor,
@@ -42,36 +91,39 @@ def encrypt_with_r_rns_fused_kernel(dk: DeviceKey, eng, nrow: torch.Tensor,
 class Encryptor:
     """Batched encryption for one public key on one torch device.
 
-    Only ``method=REGULAR`` at ``LEVEL_ONE`` is ported; the other
-    methods and levels raise ``NotImplementedError``.
+    ``method=REGULAR`` at levels 1 and 2; alternative encryption raises
+    ``NotImplementedError`` (ROADMAP A.8).  ``window`` keeps the JAX
+    signature's place and is ignored: the ladder here is the sliding one,
+    whose window is Config.sliding_window.
     """
 
     def __init__(self, pk: PublicKey, level: int = DEFAULT_LEVEL,
                  method: str = REGULAR, window: int | None = None, rng=None,
                  *, device):
-        from ..config import get_config
         if method not in (REGULAR, ALTERNATIVE):
             raise ValueError(f"unknown encryption method {method!r}")
         if method == ALTERNATIVE:
             raise NotImplementedError(
                 "alternative encryption is not ported yet (ROADMAP A.8)")
-        if level != LEVEL_ONE:
-            raise NotImplementedError(
-                f"level-{level} encryption is not ported yet (ROADMAP A.7)")
+        if level not in (LEVEL_ONE, LEVEL_TWO):
+            raise ValueError(f"level must be 1 or 2, got {level}")
         self.pk = pk
         self.dk = pk.device(device)
         self.level = level
         self.method = method
-        self.window = window if window is not None else get_config().window
         self.rng = rng or prand.make_rng()
-        self.m_limbs = self.dk.L
-        self.c_limbs = 2 * self.dk.L
-        eng = self.dk.rns(LEVEL_ONE)
-        spec = eng.spec
-        nrow = torch.tensor([pk.n % mi for mi in spec.b1 + spec.b2],
-                            dtype=torch.int32, device=self.dk.device)
-        self._fn = lambda m, r: encrypt_with_r_rns_fused_kernel(
-            self.dk, eng, nrow, m, r, pk.n)
+        self.m_limbs = level * self.dk.L
+        self.c_limbs = (level + 1) * self.dk.L
+        eng = self.dk.rns(level)
+        if level == LEVEL_ONE:
+            spec = eng.spec
+            nrow = torch.tensor([pk.n % mi for mi in spec.b1 + spec.b2],
+                                dtype=torch.int32, device=self.dk.device)
+            self._fn = lambda m, r: encrypt_with_r_rns_fused_kernel(
+                self.dk, eng, nrow, m, r, pk.n)
+        else:
+            self._fn = lambda m, r: encrypt_with_r_rns_kernel(
+                self.dk, eng, m, r, level, pk.n2)
 
     # -- randomness -------------------------------------------------------
     def sample_r(self, count: int) -> list[int]:
@@ -80,7 +132,7 @@ class Encryptor:
     # -- encryption -------------------------------------------------------
     def encrypt(self, ms: Sequence[int] | torch.Tensor,
                 rs: Optional[Sequence[int]] = None) -> Ciphertext:
-        """Encrypt a batch of plaintexts (ints < n, or a limb tensor)."""
+        """Encrypt a batch of plaintexts (ints < n^s, or a limb tensor)."""
         dev = self.dk.device
         if isinstance(ms, (list, tuple)):
             m = encode_batch(ms, self.m_limbs, device=dev)
@@ -92,3 +144,16 @@ class Encryptor:
         r = encode_batch(rs, self.c_limbs, device=dev).reshape(
             m.shape[:-1] + (self.c_limbs,))
         return Ciphertext(c=self._fn(m, r), level=self.level, method=REGULAR)
+
+
+def nested_encrypt(pk: PublicKey, ms: Sequence[int], rng=None, *,
+                   device) -> Ciphertext:
+    """Enc_2(Enc_1(m).c) (reference: paillier.go:200-203).
+
+    The inner level-1 ciphertext limbs ([..., 2L], values < n^2) are
+    exactly the level-2 plaintext width, so they feed the level-2
+    encryption directly, without a host round trip."""
+    e1 = Encryptor(pk, LEVEL_ONE, rng=rng, device=device)
+    e2 = Encryptor(pk, LEVEL_TWO, rng=rng, device=device)
+    inner = e1.encrypt(list(ms))
+    return e2.encrypt(inner.c)

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..bigint import host
+from ..bigint import host, vpu
 
 # Encryption levels (generalized Damgard-Jurik s; reference: paillier.go:15-23)
 LEVEL_ONE = 1
@@ -26,6 +26,7 @@ DEFAULT_LEVEL = LEVEL_ONE  # reference: paillier.go:42
 # Encryption methods (reference: paillier.go:27-39)
 REGULAR = "regular"
 ALTERNATIVE = "alternative"
+MIXED = "mixed"
 
 
 @dataclass
@@ -102,16 +103,19 @@ class SecretKey(PublicKey):
 
 
 class DeviceKey:
-    """Per-device engines for one public key (public-key derived only).
+    """Per-device engines and limb plans for one public key.
 
-    The RNS engine of each level is built on first use (host-side prime
-    search and CRT matrices, then one copy to ``device``)."""
+    Everything here is derived from the public key alone; secret-derived
+    constants (lambda^-1, the CRT plans) stay with the Decryptor.  The RNS
+    engine of each level and each plan are built on first use (host-side
+    prime search and matrices, then one copy to ``device``)."""
 
     def __init__(self, pk: PublicKey, device):
         self.pk = pk
         self.device = torch.device(device)
         self.L = host.limbs_for_bits(pk.bits)
         self._rns: dict = {}
+        self._plans: dict = {}
 
     def rns(self, level: int):
         """RNS engine for modulus n^(s+1), cached."""
@@ -121,6 +125,81 @@ class DeviceKey:
                                            self.limbs_for_level(level),
                                            device=self.device)
         return self._rns[level]
+
+    def pow(self, level: int, base: torch.Tensor, digits, window: int = 4
+            ) -> torch.Tensor:
+        """base^e mod n^(s+1) on the RNS engine's fixed-window ladder
+        (kernel B2 on a CUDA tensor).
+
+        ``digits``: int [D] shared or [..., D] per element, MSB-first
+        base-2^window; base: limbs [..., L_{s+1}].  Returns limbs."""
+        eng = self.rns(level)
+        out = eng.pow(eng.from_limbs(base), torch.as_tensor(digits), window)
+        return self._widen(eng.to_limbs_mod(out), level)
+
+    def pow_int(self, level: int, base: torch.Tensor, e: int
+                ) -> torch.Tensor:
+        """pow with a host-int shared exponent, on the sliding-window
+        odd-power ladder (``Rns2Engine.pow_shared``, kernel B1 on a CUDA
+        tensor; fewer multiplies than the fixed-window ladder).  Its window
+        is Config.sliding_window."""
+        if e == 0:
+            return vpu.one_like(base)
+        eng = self.rns(level)
+        out = eng.pow_shared(eng.from_limbs(base), e)
+        return self._widen(eng.to_limbs_mod(out), level)
+
+    def mul(self, level: int, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+        """a * b mod n^(s+1) for two limb tensors (``Rns2Engine.mul``: two
+        Montgomery multiplies in residue space)."""
+        eng = self.rns(level)
+        out = eng.mul(eng.from_limbs(a), eng.from_limbs(b))
+        return self._widen(eng.to_limbs_mod(out), level)
+
+    # -- limb plans (limbmm), cached per key and device ---------------------
+    def _plan(self, key, build):
+        plan = self._plans.get(key)
+        if plan is None:
+            plan = self._plans[key] = build()
+        return plan
+
+    def const_mul_plan(self, d: int, lin: int, lout: int):
+        from ..bigint import limbmm as lm
+        return self._plan(("cm", d, lin, lout), lambda: lm.ConstMulPlan.build(
+            d, lin, lout, device=self.device))
+
+    def mod_mul_plan(self, d: int, modulus: int, lin: int):
+        from ..bigint import limbmm as lm
+        return self._plan(("mm", d, modulus, lin),
+                          lambda: lm.ModMulConstPlan.build(
+                              d, modulus, lin, device=self.device))
+
+    def fold_plan(self, modulus: int, lin: int):
+        from ..bigint import limbmm as lm
+        return self._plan(("fold", modulus, lin), lambda: lm.FoldPlan.build(
+            modulus, lin, device=self.device))
+
+    def barrett_plan(self, modulus: int):
+        from ..bigint import limbmm as lm
+        return self._plan(("br", modulus), lambda: lm.BarrettPlan.build(
+            modulus, device=self.device))
+
+    def div_n_plan(self, width: int):
+        """Exact division by n at ``width`` limbs: x * n^-1 mod
+        2^(16*width) (Hensel), for decryption's L(u) = (u - 1)/n."""
+        return self.const_mul_plan(host.hensel_inverse(self.pk.n, width),
+                                   width, width)
+
+    def inv2_n_plan(self):
+        """(x * 2^-1) mod n for a 2L-limb x: level-2 G^m's C(m, 2)."""
+        return self.mod_mul_plan((self.pk.n + 1) // 2, self.pk.n, 2 * self.L)
+
+    def inv2fac_n2_plan(self):
+        """(x * n * 2^-1) mod n^2 for a 2L-limb x: level-2 recovery."""
+        n2 = self.pk.n2
+        return self.mod_mul_plan(self.pk.n * pow(2, -1, n2) % n2, n2,
+                                 2 * self.L)
 
     def _widen(self, x: torch.Tensor, level: int) -> torch.Tensor:
         """Pad a mod-n^(s+1) result to the canonical ciphertext limb width."""

@@ -1,7 +1,7 @@
-"""Kernel B1 (paillier_tpu_torch/csrc/rns2_sliding.cu) and what surrounds
-it: the wrapper's checks, the __dp4a matrix packing and the launch
-counter.  This file imports no JAX, so its GPU tests also run on a
-machine without it:
+"""Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu) and B2
+(csrc/rns2_modexp.cu) and what surrounds them: the wrappers' checks, the
+__dp4a matrix packing, the build hash and the launch counters.  This
+file imports no JAX, so its GPU tests also run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from paillier_tpu_torch.bigint import cuda_build
+from paillier_tpu_torch.bigint import modexp_kernel as mx
 from paillier_tpu_torch.bigint import rns2 as tr
 from paillier_tpu_torch.bigint import sliding_kernel as sk
+from paillier_tpu_torch.bigint.montgomery import exp_digits, n_digits_for_bits
 
 torch.set_num_threads(2)
 
@@ -33,7 +36,8 @@ def eng256_cpu():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("kernel B1 is CUDA C++: needs an NVIDIA GPU and nvcc")
+        pytest.skip("kernels B1 and B2 are CUDA C++: need an NVIDIA GPU and "
+                    "nvcc")
     return torch.device("cuda")
 
 
@@ -42,7 +46,7 @@ def test_pack_dp4a_layout():
     rng = np.random.default_rng(4)
     C = 128
     e = rng.integers(-128, 128, size=(C, C), dtype=np.int64)
-    packed = sk._pack_dp4a(torch.as_tensor(e, dtype=torch.int8)).numpy()
+    packed = cuda_build.pack_dp4a(torch.as_tensor(e, dtype=torch.int8)).numpy()
     assert packed.shape == (C // 4, C) and packed.dtype == np.int32
     raw = packed.view(np.uint32)
     for t in range(4):
@@ -67,17 +71,25 @@ def test_wrapper_checks(eng256_cpu):
     ctx = eng256_cpu.ctx
     k = ctx.k
     ok = torch.zeros((3, 2 * k), dtype=torch.int32)
-    sk._check(ctx, ok, 6)
+
+    def check(c, x, window):
+        cuda_build.check_operand(c, x, window, "B1")
+
+    check(ctx, ok, 6)
     with pytest.raises(ValueError, match="int32"):
-        sk._check(ctx, ok.long(), 6)
+        check(ctx, ok.long(), 6)
     with pytest.raises(ValueError, match="channels"):
-        sk._check(ctx, ok[:, :-2], 6)
+        check(ctx, ok[:, :-2], 6)
     with pytest.raises(ValueError, match="window"):
-        sk._check(ctx, ok, 9)
-    for k_bad in (384, 512, 96):
+        check(ctx, ok, 9)
+    for k_ok in (384, 512, 704):
+        wide = ctx._replace(ic1=torch.zeros((5, k_ok), dtype=torch.int32))
+        check(wide, torch.zeros((1, 2 * k_ok), dtype=torch.int32), 6)
+    for k_bad in (768, 96, 1024):
         bad = ctx._replace(ic1=torch.zeros((5, k_bad), dtype=torch.int32))
-        with pytest.raises(ValueError, match="multiple of 64 up to 320"):
-            sk._check(bad, torch.zeros((1, 2 * k_bad), dtype=torch.int32), 6)
+        with pytest.raises(ValueError, match="B1 takes k a multiple of 64 "
+                                             "up to 704"):
+            check(bad, torch.zeros((1, 2 * k_bad), dtype=torch.int32), 6)
     meta = torch.zeros((2, 2 * k), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         sk.rns2_pow_sliding_b1(ctx, meta, tr.sliding_window_schedule(5, 6))
@@ -93,6 +105,75 @@ def test_cpu_tensor_takes_plain_version(eng256_cpu):
     assert sk.rns2_pow_sliding_b1.launches == before
     assert torch.equal(got, sk.rns2_pow_sliding_plain(eng.ctx, x, sched, 6))
     assert eng.decode(got) == [pow(v, 1000003, n) for v in (2, 3, n - 1)]
+
+
+def test_b2_wrapper_checks(eng256_cpu):
+    """Kernel B2's wrapper refuses what the kernel does not take, before
+    it would build or launch: dtype, shape, window and k range, digit
+    shape and range, non-CUDA devices."""
+    ctx = eng256_cpu.ctx
+    k = ctx.k
+    ok = torch.zeros((3, 2 * k), dtype=torch.int32)
+    dig = torch.zeros(5, dtype=torch.int32)
+    meta = ok.to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        mx.rns2_pow_b2(ctx, meta, dig)
+    for x, window, match in ((ok.long(), 4, "int32"), (ok[:, :-2], 4,
+                             "channels"), (ok, 9, "window"),
+                             (ok, 0, "window")):
+        with pytest.raises(ValueError, match=match):
+            cuda_build.check_operand(ctx, x, window, "B2")
+    for k_bad in (768, 96):
+        bad = ctx._replace(ic1=torch.zeros((5, k_bad), dtype=torch.int32))
+        with pytest.raises(ValueError, match="B2 takes k a multiple of 64 "
+                                             "up to 704"):
+            cuda_build.check_operand(
+                bad, torch.zeros((1, 2 * k_bad), dtype=torch.int32), 4, "B2")
+    mx._check_digits(dig, 3, 4)
+    mx._check_digits(torch.full((3, 7), 15, dtype=torch.int64), 3, 4)
+    for d, match in ((torch.full((5,), 16), "below|lie in"),
+                     (torch.full((5,), -1), "lie in"),
+                     (torch.zeros((2, 5), dtype=torch.int32), "rows"),
+                     (torch.zeros((3, 0), dtype=torch.int32), "at least"),
+                     (torch.zeros((1, 3, 5), dtype=torch.int32), "integers"),
+                     (torch.zeros(5), "integers")):
+        with pytest.raises(ValueError, match=match):
+            mx._check_digits(d, 3, 4)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_b2_cpu_tensor_takes_plain_version(eng256_cpu, per_row):
+    eng = eng256_cpu
+    n = eng.spec.N
+    xs = [2, 3, n - 1, 12345]
+    x = eng.encode(xs)
+    es = [1000003, 0, 65537, n - 2] if per_row else [1000003] * 4
+    nd = n_digits_for_bits(max(e.bit_length() for e in es), 4)
+    dig = np.stack([exp_digits(e, 4, nd) for e in es])
+    digits = torch.as_tensor(dig if per_row else dig[0])
+    before = mx.rns2_pow_b2.launches
+    got = mx.rns2_pow_b2(eng.ctx, x, digits, 4)
+    assert mx.rns2_pow_b2.launches == before
+    assert torch.equal(got, mx.rns2_pow_plain(eng.ctx, x, digits, 4))
+    assert torch.equal(got, tr.rns2_pow(eng.ctx, x, digits, 4))
+    assert eng.decode(got) == [pow(v, e, n) for v, e in zip(xs, es)]
+
+
+def test_build_hash_covers_included_headers(tmp_path):
+    """An edit of a header that a kernel source includes changes the
+    build's name, so a stale library is never loaded."""
+    for name in ("rns2_sliding.cu", "rns2_modexp.cu"):
+        files = cuda_build.source_files(cuda_build.CSRC / name)
+        assert [f.name for f in files] == [name, "rns2_mont.cuh"]
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include "a.cuh"\n#include <cstdint>\n')
+    assert [f.name for f in cuda_build.source_files(src)] == [
+        "k.cu", "a.cuh", "b.cuh"]
+    before = cuda_build.source_hash(src)
+    (tmp_path / "b.cuh").write_text("int b2;\n")
+    assert cuda_build.source_hash(src) != before
 
 
 @pytest.mark.cuda
@@ -151,3 +232,81 @@ def test_dot_i8_on_cuda(cuda_device):
         got = _dot_i8(torch.as_tensor(a, dtype=torch.int8, device=cuda_device),
                       torch.as_tensor(b, dtype=torch.int8, device=cuda_device))
         assert np.array_equal(got.cpu().numpy(), a @ b), (M, K, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows", [(4600, 11), (6144, 9), (8192, 5)])
+def test_kernel_b1_wide_matches_plain_on_cuda(cuda_device, bits, rows):
+    """Kernel B1 on wide contexts: k = 384 (no pre-reduction), k = 512 (n^3
+    of a 2048-bit key) and k = 704 (n^2 of a 4096-bit key), with fin and a
+    ragged last tile: bit-identical to the plain ladder and to pow."""
+    rng = random.Random(bits)
+    n = _odd(rng, bits)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    assert eng.spec.k == {4600: 384, 6144: 512, 8192: 704}[bits]
+    xs = [rng.randrange(n) for _ in range(rows)]
+    fs = [rng.randrange(n) for _ in range(rows)]
+    x, fin = eng.encode(xs), eng.encode(fs)
+    e = rng.getrandbits(96) | (1 << 95)
+    sched = tr.sliding_window_schedule(e, 6)
+    before = sk.rns2_pow_sliding_b1.launches
+    got = sk.rns2_pow_sliding_b1(eng.ctx, x, sched, 6, fin=fin)
+    want = tr.rns2_pow_sliding_plain(eng.ctx, x, sched, 6, fin=fin)
+    assert sk.rns2_pow_sliding_b1.launches == before + 1
+    assert torch.equal(got, want)
+    assert eng.decode(got) == [pow(v, e, n) * f % n for v, f in zip(xs, fs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,window", [(256, 13, 4), (256, 5, 1),
+                                              (256, 9, 8), (4096, 9, 4),
+                                              (6144, 3, 4)])
+def test_kernel_b2_matches_plain_on_cuda(cuda_device, bits, rows, window):
+    """Kernel B2 against the plain ladder at k = 64, 320 and 512, shared and
+    per-row digits (a zero exponent and zero digits included): bit-identical
+    and equal to Python's pow."""
+    rng = random.Random(bits + window)
+    n = _odd(rng, bits)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    xs = [rng.randrange(n) for _ in range(rows)]
+    x = eng.encode(xs)
+    es = [rng.getrandbits(64) for _ in range(rows - 1)] + [0]
+    nd = n_digits_for_bits(64, window)
+    per = torch.as_tensor(np.stack([exp_digits(e, window, nd) for e in es]),
+                          device=cuda_device)
+    for digits, want_e in ((per, es), (per[0], [es[0]] * rows)):
+        before = mx.rns2_pow_b2.launches
+        got = mx.rns2_pow_b2(eng.ctx, x, digits, window)
+        want = mx.rns2_pow_plain(eng.ctx, x, digits, window)
+        assert mx.rns2_pow_b2.launches == before + 1
+        assert torch.equal(got, want)
+        assert eng.decode(got) == [pow(v, e, n) for v, e in zip(xs, want_e)]
+    one = mx.rns2_pow_b2(eng.ctx, x[0], per[0], window)     # [C] input
+    assert eng.decode(one[None]) == [pow(xs[0], es[0], n)]
+
+
+@pytest.mark.cuda
+def test_level2_and_homomorphic_on_cuda(cuda_device):
+    """Level-2 encryption / decryption, nested_add and a per-element
+    const_mult on the card, through kernels B1 and B2."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch import homomorphic as hom
+    sk_, pk = pt.keygen(512, random.Random(7))
+    rng = random.Random(8)
+    b1_0, b2_0 = sk.rns2_pow_sliding_b1.launches, mx.rns2_pow_b2.launches
+    m2 = [rng.randrange(pk.n2) for _ in range(6)] + [0]
+    c2 = pt.Encryptor(pk, 2, rng=rng, device=cuda_device).encrypt(m2)
+    assert pt.Decryptor(sk_, 2, device=cuda_device).decrypt(c2) == m2
+    xs = [rng.randrange(pk.n) for _ in range(5)]
+    ys = [rng.randrange(pk.n) for _ in range(5)]
+    nx = pt.nested_encrypt(pk, xs, rng, device=cuda_device)
+    cy = pt.Encryptor(pk, rng=rng, device=cuda_device).encrypt(ys)
+    assert pt.nested_decrypt(sk_, hom.nested_add(pk, nx, cy),
+                             device=cuda_device) == [
+        (a + b) % pk.n for a, b in zip(xs, ys)]
+    ks = [rng.randrange(pk.n) for _ in ys]
+    dec = pt.Decryptor(sk_, crt=True, device=cuda_device)
+    assert dec.decrypt(hom.const_mult(pk, cy, ks)) == [
+        a * k % pk.n for a, k in zip(ys, ks)]
+    assert sk.rns2_pow_sliding_b1.launches > b1_0
+    assert mx.rns2_pow_b2.launches == b2_0 + 2

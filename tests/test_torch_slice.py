@@ -139,16 +139,17 @@ def test_vectors_level1_regular():
 
 
 def test_unported_paths_raise(keys):
+    """What the port does not have yet raises, naming its ROADMAP item:
+    alternative encryption (A.8, kernel B3) and extract_randomness
+    (B.4, kernel B4); a bogus method is a ValueError."""
     _, tsk, _ = keys
     pk = tsk.public()
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pt.Encryptor(pk, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        pt.Encryptor(pk, method="alternative", device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pt.Decryptor(tsk, crt=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        pt.Decryptor(tsk, 2, crt=True, device="cpu")
+    for level in (pt.LEVEL_ONE, pt.LEVEL_TWO):
+        with pytest.raises(NotImplementedError, match="A.8"):
+            pt.Encryptor(pk, level, method="alternative", device="cpu")
+    ct = pt.Encryptor(pk, rng=random.Random(1), device="cpu").encrypt([5])
+    with pytest.raises(NotImplementedError, match="B.4"):
+        pt.homomorphic.extract_randomness(tsk, ct)
     with pytest.raises(ValueError):
         pt.Encryptor(pk, method="bogus", device="cpu")
 
