@@ -7,8 +7,9 @@ Phases (each prints lines tagged with its name; any failure exits
 non-zero):
   1. device  -- a CUDA device is required; prints nvidia-smi's name and
                 power limit.
-  2. build   -- builds kernels B1 (csrc/rns2_sliding.cu) and B2
-                (csrc/rns2_modexp.cu), one nvcc each, both at once, into
+  2. build   -- builds kernels B1 (csrc/rns2_sliding.cu), B2
+                (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
+                (csrc/limb_modexp.cu), one nvcc each, all at once, into
                 build/paillier_tpu_torch/, and prints the build time and
                 ptxas' register and spill report of every instantiation.
   3. kernel  -- each kernel against its plain torch version on the same
@@ -21,7 +22,16 @@ non-zero):
                 B2: shared and per-row digits at k = 64; per-row 2048-bit
                 exponents on 4096 rows at k = 320 (const_mult); 1024 rows
                 at k = 512 with the 1024 digits of level-1 ciphertexts
-                (nested_add).  Kernel and plain times are CUDA events.
+                (nested_add).
+                B3: k = 64 with and without fin; the main path's shapes,
+                4096 rows at k = 320 (h1's comb, 256 per-row digits of
+                r < K) and 1024 rows at k = 512 (h2's comb).
+                B4: L = 16 with shared and per-row digits and per-row
+                moduli; L = 128 on 4096 rows against plain over a 32-digit
+                exponent, the full 2048-bit exponent of extract_randomness
+                (64 rows against pow), and 64 per-row 1024-bit moduli with
+                per-row exponents (the Fermat batch).
+                Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
                 Decryptor(sk, crt=True, device="cuda") on all of them:
@@ -37,10 +47,21 @@ non-zero):
                 (1+n)^m * r^(n^2) mod n^3), Decryptor(sk, 2) round trip,
                 nested_encrypt -> nested_add / nested_sub /
                 nested_randomize -> nested_decrypt give x+y, x-y and x.
-Phases 4-6 each set the launch counters to 0 just before their
+  7. alternative -- Encryptor(pk, 1, "alternative") on 4096 plaintexts
+                and a CRT round trip (8 rows equal (1+m*n) * h1^r mod n^2);
+                Encryptor(pk, 2, "alternative") on 1024 and a
+                Decryptor(sk, 2) round trip (8 rows against the host
+                formula); alt enc/s.
+  8. limb    -- extract_randomness on 4096 level-1 and 1024 level-2
+                regular ciphertexts returns every r that encrypted;
+                keygen(2048, device_primes=True) finds p, q (host
+                Miller-Rabin, 3 mod 4, a 2048-bit n) through B4's per-row
+                moduli.
+Phases 4-8 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
-whose B1 and B2 launches differ from the exact count its entry points
-make fails.  Then one JSON line describing the kernels,
+whose B1, B2, B3 and B4 launches differ from the exact count its entry
+points make fails (the prime search's B4 count is the number of Fermat
+batches it reports).  Then one JSON line describing the kernels,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -112,19 +133,32 @@ def main() -> None:
     from paillier_tpu_torch import (Ciphertext, Decryptor, Encryptor,
                                     homomorphic as hom, keygen,
                                     nested_decrypt, nested_encrypt)
+    from paillier_tpu_torch.bigint import fixed_base_kernel as fb_mod
+    from paillier_tpu_torch.bigint import host as bhost
     from paillier_tpu_torch.bigint import modexp_kernel as mx_mod
+    from paillier_tpu_torch.bigint import mont_kernel as mk_mod
     from paillier_tpu_torch.bigint import sliding_kernel as sk_mod
     from paillier_tpu_torch.bigint.montgomery import (exp_digits,
                                                       limbs_to_digits,
-                                                      n_digits_for_bits)
+                                                      make_mont_ctx,
+                                                      n_digits_for_bits,
+                                                      stack_mont_ctx)
     from paillier_tpu_torch.bigint.rns2 import (Rns2Engine,
+                                                build_fixed_base_table,
                                                 sliding_window_schedule)
+    from paillier_tpu_torch.core import keygen as kg_mod
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
     b1 = sk_mod.rns2_pow_sliding_b1
     b1_plain = sk_mod.rns2_pow_sliding_plain
     b2 = mx_mod.rns2_pow_b2
     b2_plain = mx_mod.rns2_pow_plain
+    b3 = fb_mod.rns2_pow_fixed_base_b3
+    b3_plain = fb_mod.rns2_pow_fixed_base_plain
+    b4 = mk_mod.mont_pow_b4
+    b4_plain = mk_mod.mont_pow_digits_plain
+    wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4}
+    mods = {"B1": sk_mod, "B2": mx_mod, "B3": fb_mod, "B4": mk_mod}
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
 
@@ -137,18 +171,17 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(sk_mod.load), pool.submit(mx_mod.load)]:
+    with ThreadPoolExecutor(len(mods)) as pool:
+        for fut in [pool.submit(mod.load) for mod in mods.values()]:
             fut.result()
-    phase("build", f"kernels B1 and B2 built in "
+    phase("build", f"kernels {', '.join(mods)} built in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name, mod in (("B1", sk_mod), ("B2", mx_mod)):
+    for name, mod in mods.items():
         for ln in ptxas_report(mod.build_log):
             phase("build", f"{name}{ln}")
 
     # -- 3. kernel vs plain ------------------------------------------------
-    stats = {"B1": {"err": 0, "n": 0, "times": []},
-             "B2": {"err": 0, "n": 0, "times": []}}
+    stats = {kname: {"err": 0, "n": 0, "times": []} for kname in mods}
 
     def compare(kname, run_kernel, run_plain, label, warm=False):
         """Kernel and plain version on the same inputs: bit-identical, or
@@ -222,12 +255,54 @@ def main() -> None:
                             lambda: b2_plain(eng.ctx, x, per, window),
                             f"k=64 per-row w={window}")
         check_pow(eng, xs, es, [1] * 16, got, 16, f"B2 k=64 per-row w={window}")
-    phase("kernel", f"k=64: {stats['B1']['n']} B1 and {stats['B2']['n']} B2 "
-          f"ladders bit-identical to plain and to pow "
-          f"({time.perf_counter() - t0:.1f} s)")
+    # B3 at k = 64: a comb of 15 digits, with and without fin
+    base = rng.randrange(2, n256)
+    es = [rng.getrandbits(60) for _ in range(15)] + [0]
+    nd = n_digits_for_bits(60, 4)
+    table = build_fixed_base_table(eng, base, nd, 4)
+    per = torch.as_tensor(np.stack([exp_digits(v, 4, nd) for v in es]),
+                          device=dev)
+    for f_ops, f_vals in ((None, [1] * 16), (fin, fs)):
+        got, _, _ = compare(
+            "B3", lambda: b3(eng.ctx, table, per, 4, fin=f_ops),
+            lambda: b3_plain(eng.ctx, table, per, 4, fin=f_ops),
+            f"k=64 comb fin={f_ops is not None}")
+        check_pow(eng, [base] * 16, es, f_vals, got, 16, "B3 k=64")
+
+    def check_limbs(got, xs, es, ns, rows, label):
+        want = [pow(x, e, m) for x, e, m in zip(xs[:rows], es[:rows],
+                                                ns[:rows])]
+        if bhost.limbs_to_ints(got[:rows].cpu().numpy()) != want:
+            fail(f"kernel output != Python pow ({label})")
+
+    def limbs(vals, L):
+        return torch.as_tensor(bhost.ints_to_limbs(vals, L).astype(np.int64),
+                               device=dev)
+
+    # B4 at L = 16: shared and per-row digits, per-row moduli
+    ctx256 = make_mont_ctx(n256, device=dev)
+    xl = limbs(xs, 16)
+    es = [rng.getrandbits(120) for _ in range(15)] + [0]
+    nd = n_digits_for_bits(120, 4)
+    per = torch.as_tensor(np.stack([exp_digits(v, 4, nd) for v in es]),
+                          device=dev)
+    for digits, want_e in ((per, es), (per[0], [es[0]] * 16)):
+        got, _, _ = compare("B4", lambda: b4(ctx256, xl, digits, 4),
+                            lambda: b4_plain(ctx256, xl, digits, 4),
+                            f"L=16 digits {tuple(digits.shape)}")
+        check_limbs(got, xs, want_e, [n256] * 16, 16, "B4 L=16")
+    moduli = [rng.getrandbits(256) | (1 << 255) | 1 for _ in range(16)]
+    sctx = stack_mont_ctx(moduli, 16, device=dev)
+    got, _, _ = compare("B4", lambda: b4(sctx, xl, per, 4),
+                        lambda: b4_plain(sctx, xl, per, 4),
+                        "L=16 per-row moduli")
+    check_limbs(got, xs, es, moduli, 16, "B4 L=16 per-row moduli")
+    phase("kernel", f"k=64 / L=16: " + ", ".join(
+        f"{k} {v['n']}" for k, v in stats.items()) + " ladders bit-identical "
+          f"to plain and to pow ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    skey, pk = keygen(KEY_BITS, random.Random(SEED))
+    skey, pk = keygen(KEY_BITS, random.Random(SEED), device_primes=False)
     phase("main", f"keygen({KEY_BITS}) in {time.perf_counter() - t0:.2f} s")
     dk = pk.device(dev)
 
@@ -308,6 +383,7 @@ def main() -> None:
         lambda: b2_plain(eng_n2.ctx, x, per, 4),
         f"k={eng_n2.spec.k} rows={BATCH} per-row {nd} digits", warm=True)
     check_pow(eng_n2, xs, es, [1] * 4, got, 4, "B2 k=320")
+    b2_nd = nd
     phase("kernel", f"B2 k={eng_n2.spec.k}, {BATCH} rows, per-row {nd} "
           f"digits: bit-identical to plain and to pow; kernel "
           f"{b2_ms:.3f} ms, plain {b2_plain_ms:.3f} ms")
@@ -334,23 +410,100 @@ def main() -> None:
           f"({time.perf_counter() - t0:.1f} s)")
     del x, got
 
-    launches = {"B1": 0, "B2": 0}
+    # B3 at the main path's shapes: h1's comb at k = 320 on BATCH rows and
+    # h2's at k = 512 on L2_BATCH rows, 256 per-row digits of r < K, fin
+    t0 = time.perf_counter()
+    r_bits = pk.k.bit_length() - 1
+    nd_r = n_digits_for_bits(r_bits, 4)
+    b3_shapes = {}
+    for level, rows, eng_l in ((1, BATCH, eng_n2), (2, L2_BATCH, eng_n3)):
+        table = dk.comb_table(level, 4)
+        hs = dk.hs_int_for_level(level)
+        N = eng_l.spec.N
+        es = [rng.randrange(pk.k) for _ in range(rows)]
+        fs = [rng.randrange(N) for _ in range(rows)]
+        per = limbs_to_digits(limbs(es, bhost.limbs_for_bits(r_bits)), 4, nd_r)
+        fin = residues(eng_l, fs)
+        got, ms, plain_ms = compare(
+            "B3", lambda: b3(eng_l.ctx, table, per, 4, fin=fin),
+            lambda: b3_plain(eng_l.ctx, table, per, 4, fin=fin),
+            f"k={eng_l.spec.k} rows={rows} comb {nd_r} digits fin", warm=True)
+        check_pow(eng_l, [hs] * HOST_ROWS, es, fs, got, HOST_ROWS,
+                  f"B3 k={eng_l.spec.k}")
+        b3_shapes[level] = dict(ms=ms, plain_ms=plain_ms, rows=rows,
+                                k=eng_l.spec.k, D=nd_r, table=table)
+        phase("kernel", f"B3 k={eng_l.spec.k}, {rows} rows, {nd_r} per-row "
+              f"digits with fin: bit-identical to plain, {HOST_ROWS} rows to "
+              f"pow; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del got
+
+    # B4 at L = 128 (mod n): BATCH rows against plain over a 32-digit
+    # exponent; the full exponent of extract_randomness on BATCH rows (64
+    # against pow); 64 per-row 1024-bit moduli with per-row exponents
+    L = dk.L
+    ctx_n = dk.mont_ctx_n()
+    xs = [rng.randrange(pk.n) for _ in range(BATCH)]
+    xl = limbs(xs, L)
+    e32 = rng.getrandbits(128) | (1 << 127)
+    d32 = torch.as_tensor(exp_digits(e32, 4, 32), device=dev)
+    got, b4_ms, b4_plain_ms = compare(
+        "B4", lambda: b4(ctx_n, xl, d32, 4), lambda: b4_plain(ctx_n, xl, d32, 4),
+        f"L={L} rows={BATCH} shared 32 digits", warm=True)
+    check_limbs(got, xs, [e32] * 64, [pk.n] * 64, 64, "B4 L=128 32 digits")
+    e_full = pow(pk.n, -1, skey.lam)
+    nd_full = n_digits_for_bits(e_full.bit_length(), 4)
+    d_full = torch.as_tensor(exp_digits(e_full, 4, nd_full), device=dev)
+    b4(ctx_n, xl[:64], d_full, 4)                                  # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = b4(ctx_n, xl, d_full, 4)
+    ev[1].record()
+    torch.cuda.synchronize()
+    b4_full_ms = ev[0].elapsed_time(ev[1])
+    check_limbs(got, xs, [e_full] * 64, [pk.n] * 64, 64, "B4 L=128 full e")
+    stats["B4"]["times"].append({"shape": f"L={L} rows={BATCH} shared "
+                                 f"{nd_full} digits (no plain run)",
+                                 "ms": b4_full_ms, "plain_ms": None})
+    cands = kg_mod.sieve_candidates(KEY_BITS // 2, 64, random.Random(SEED + 7))
+    Lh = bhost.limbs_for_bits(KEY_BITS // 2)
+    sctx = stack_mont_ctx(cands, Lh, device=dev)
+    es = [c - 1 for c in cands]
+    xs64 = [rng.randrange(2, c) for c in cands]
+    dig = limbs_to_digits(limbs(es, Lh), 4)
+    got, ms, plain_ms = compare(
+        "B4", lambda: b4(sctx, limbs(xs64, Lh), dig, 4),
+        lambda: b4_plain(sctx, limbs(xs64, Lh), dig, 4),
+        f"L={Lh} rows=64 per-row moduli, {dig.shape[-1]} digits", warm=True)
+    check_limbs(got, xs64, es, cands, 64, "B4 per-row 1024-bit moduli")
+    phase("kernel", f"B4 L={L}, {BATCH} rows: 32 digits bit-identical to "
+          f"plain (kernel {b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms); "
+          f"{nd_full} digits (extract_randomness' exponent) {b4_full_ms:.3f} "
+          f"ms, 64 rows equal pow; L={Lh}, 64 per-row moduli and exponents: "
+          f"bit-identical to plain and to pow, kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)")
+    del got, xl
+
+    launches = {kname: 0 for kname in wrappers}
     op_s: dict = {}
 
-    def timed(name, fn, b1_want, b2_want=0):
+    def counts():
+        return {kname: w.launches for kname, w in wrappers.items()}
+
+    def timed(name, fn, b1_want=0, b2_want=0, b3_want=0, b4_want=0):
         """fn() between two synchronisations; its seconds go to op_s.
-        Fails unless fn launched B1 and B2 exactly as often as its
-        entry point does (b1_want, b2_want)."""
-        before = (b1.launches, b2.launches)
+        Fails unless fn launched B1, B2, B3 and B4 exactly as often as
+        its entry point does."""
+        before = counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         op_s[name] = time.perf_counter() - t
-        got = (b1.launches - before[0], b2.launches - before[1])
-        if got != (b1_want, b2_want):
-            fail(f"{name} launched (B1, B2) {got}, expected "
-                 f"{(b1_want, b2_want)}: an operation bypassed its kernel")
+        got = tuple(v - before[k] for k, v in counts().items())
+        want = (b1_want, b2_want, b3_want, b4_want)
+        if got != want:
+            fail(f"{name} launched (B1, B2, B3, B4) {got}, expected {want}: "
+                 f"an operation bypassed its kernel")
         return res
 
     def op_line():
@@ -361,20 +514,25 @@ def main() -> None:
     def run_path(name, ops, want):
         """Counters to 0, ops(), counters read; fail unless each kernel
         was launched exactly ``want[kname]`` times (the count its entry
-        points make).  Returns (result, seconds)."""
-        b1.launches = b2.launches = 0
+        points make; a kernel not named: 0).  ``want`` may be a function
+        of ops()' result.  Returns (result, seconds)."""
+        for w in wrappers.values():
+            w.launches = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = ops()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        got = {"B1": b1.launches, "B2": b2.launches}
+        got = counts()
+        want = want(res) if callable(want) else want
+        want = {kname: want.get(kname, 0) for kname in wrappers}
         if got != want:
             fail(f"{name} launched {got}, expected {want}: an operation "
                  f"bypassed its kernel")
         for kname in got:
             launches[kname] += got[kname]
-        phase(name, f"{dt:.4f} s; launches B1 {got['B1']}, B2 {got['B2']}")
+        phase(name, f"{dt:.4f} s; launches " + ", ".join(
+            f"{k} {v}" for k, v in got.items()))
         return res, dt
 
     # -- 4. main path ------------------------------------------------------
@@ -531,19 +689,153 @@ def main() -> None:
           f"(8 equal the host formula), nested_encrypt -> nested_add / "
           f"nested_sub / nested_randomize -> nested_decrypt: every check "
           f"passed ({time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 7. alternative encryption ------------------------------------------
+    t0 = time.perf_counter()
+    arng = random.Random(SEED + 8)
+    ms1 = [arng.randrange(n) for _ in range(BATCH)]
+    rs1 = random_units(n, BATCH, arng)
+    ms2 = [arng.randrange(n2) for _ in range(L2_BATCH)]
+    rs2 = random_units(n, L2_BATCH, arng)
+    alt1 = Encryptor(pk, 1, "alternative", device=dev, rng=arng)
+    alt2 = Encryptor(pk, 2, "alternative", device=dev, rng=arng)
+    dec.decrypt(alt1.encrypt(ms1[:WARM_ROWS], rs1[:WARM_ROWS]))   # warm-up
+    phase("alternative", f"Encryptors built and warmed in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def alt_ops():
+        # one comb (B3) per encryption; CRT decryption two B1 ladders,
+        # level-2 decryption one
+        c1 = timed("alt encrypt L1", lambda: alt1.encrypt(ms1, rs1), 0, 0, 1)
+        back1 = timed("CRT decrypt", lambda: dec.decrypt(c1), 2)
+        c2 = timed("alt encrypt L2", lambda: alt2.encrypt(ms2, rs2), 0, 0, 1)
+        back2 = timed("decrypt L2", lambda: dec2.decrypt(c2), 1)
+        return dict(c1=c1, back1=back1, c2=c2, back2=back2)
+
+    res, _ = run_path("alternative", alt_ops, {"B1": 3, "B3": 2})
+    t_alt1, t_alt2 = op_s["alt encrypt L1"], op_s["alt encrypt L2"]
+    phase("alternative", f"seconds: {op_line()}")
+    h1, h2 = dk.hs_int_for_level(1), dk.hs_int_for_level(2)
+    K = pk.k
+    if res["c1"].method != "alternative" or res["c2"].method != "alternative":
+        fail("alternative ciphertexts not marked as such")
+    if decode_batch(res["c1"].c[:HOST_ROWS]) != [
+            (1 + m * n) * pow(h1, r % K, n2) % n2
+            for m, r in zip(ms1[:HOST_ROWS], rs1[:HOST_ROWS])]:
+        fail("alternative level-1 ciphertexts != (1 + m*n) * h1^r mod n^2")
+    if decode_batch(res["c2"].c[:HOST_ROWS]) != [
+            pow(1 + n, m, n3) * pow(h2, r % K, n3) % n3
+            for m, r in zip(ms2[:HOST_ROWS], rs2[:HOST_ROWS])]:
+        fail("alternative level-2 ciphertexts != (1+n)^m * h2^r mod n^3")
+    if res["back1"] != ms1 or res["back2"] != ms2:
+        fail("alternative ciphertexts did not round-trip")
+    phase("alternative", f"alt encrypt {BATCH} x {KEY_BITS}-bit at level 1: "
+          f"{t_alt1:.4f} s, {BATCH / t_alt1:.1f} enc/s; {L2_BATCH} at level "
+          f"2: {t_alt2:.4f} s, {L2_BATCH / t_alt2:.1f} enc/s; all round-trip, "
+          f"{HOST_ROWS} of each equal the host formula "
+          f"({time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 8. limb ladder: extract_randomness, device prime search -----------
+    t0 = time.perf_counter()
+    xrng = random.Random(SEED + 9)
+    xm1 = [xrng.randrange(n) for _ in range(BATCH)]
+    xr1 = random_units(n, BATCH, xrng)
+    xm2 = [xrng.randrange(n2) for _ in range(L2_BATCH)]
+    xr2 = random_units(n, L2_BATCH, xrng)
+    xc1, xc2 = enc.encrypt(xm1, xr1), enc2.encrypt(xm2, xr2)
+    phase("limb", f"inputs: {BATCH} level-1 and {L2_BATCH} level-2 "
+          f"encryptions ({time.perf_counter() - t0:.2f} s)")
+
+    def limb_ops():
+        # each: the plain decryption (one B1 ladder), one B4 ladder mod n
+        return dict(
+            r1=timed("extract_randomness L1",
+                     lambda: hom.extract_randomness(skey, xc1), 1, 0, 0, 1),
+            r2=timed("extract_randomness L2",
+                     lambda: hom.extract_randomness(skey, xc2), 1, 0, 0, 1))
+
+    res, _ = run_path("limb", limb_ops, {"B1": 2, "B4": 2})
+    phase("limb", f"seconds: {op_line()}")
+    if res["r1"] != xr1 or res["r2"] != xr2:
+        fail("extract_randomness did not return the encryption randomness")
+    batches0 = kg_mod.device_batched_prime.batches
+    (sk3, pk3), t_kg = run_path(
+        "limb", lambda: keygen(KEY_BITS, random.Random(SEED + 1),
+                               device_primes=True, device=dev),
+        lambda _: {"B4": kg_mod.device_batched_prime.batches - batches0})
+    fermat = kg_mod.device_batched_prime.batches - batches0
+    for p_ in (sk3.p, sk3.q):
+        if p_ % 4 != 3 or p_.bit_length() != KEY_BITS // 2 \
+                or not bhost.is_probable_prime(p_, 30):
+            fail("device prime search returned a bad prime")
+    if pk3.n.bit_length() != KEY_BITS or sk3.p == sk3.q or fermat < 2:
+        fail(f"device keygen: n of {pk3.n.bit_length()} bits, "
+             f"{fermat} Fermat batches")
+    phase("limb", f"extract_randomness returned all {BATCH} level-1 and "
+          f"{L2_BATCH} level-2 rs; keygen({KEY_BITS}, device_primes=True) "
+          f"in {t_kg:.3f} s: {fermat} Fermat batches of 64 = {fermat} B4 "
+          f"launches, p and q pass Miller-Rabin, 3 mod 4 "
+          f"({time.perf_counter() - t0:.1f} s in all)")
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
-    def entry(kname, name, source, replaces, ms, plain_ms):
+    # -- bounds: the least time the card could take for each timed call ----
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    HBM, INT8 = 3.35e12, 1.979e15          # B/s; int8 dense op/s (700 W)
+    IMAD_CLOCK = 1.98e9                    # H100 SXM boost clock, Hz
+    # 64 INT32 lanes per SM, a 32x32->64 multiply-add = 2 IMAD issues
+    MAC32 = sms * 32 * IMAD_CLOCK
+
+    def bound(t_ops, nbytes):
+        t_bytes = nbytes / HBM
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def rns_bound(mults, rows, k, in_out_bytes):
+        """mults Montgomery multiplies of two [2k] x [2k, 2k] int8
+        extensions per row; bytes: operands in and out plus the two
+        int8 matrices."""
+        macs = mults * rows * 2 * (2 * k) ** 2
+        return bound(2 * macs / INT8, in_out_bytes + 2 * (2 * k) ** 2)
+
+    k1 = eng_n2.spec.k
+    C1 = 2 * k1
+    sched = sliding_window_schedule(pk.n, 6)
+    b1_mults = 32 + 1 + int((sched[1:] >= -1).sum()) + \
+        int((sched[1:] >= 0).sum()) + 1
+    b1_bound = rns_bound(b1_mults, BATCH, k1, 3 * BATCH * C1 * 4)
+    b2_mults = 1 + 14 + b2_nd * 5 + 1
+    b2_bound = rns_bound(b2_mults, BATCH, k1,
+                         BATCH * (2 * C1 * 4 + b2_nd * 4))
+    b3s = b3_shapes[1]
+    b3_bound = rns_bound(b3s["D"], BATCH, k1,
+                         b3s["table"].numel() * 4
+                         + BATCH * (3 * C1 * 4 + b3s["D"] * 4))
+    nw = dk.L // 2
+    b4_mults = 16 + 1 + 32 * 5
+    b4_bound = bound(b4_mults * BATCH * (2 * nw * nw + nw) / MAC32,
+                     BATCH * dk.L * 8 * 2 + 32 * 4 + 3 * dk.L * 8)
+
+    def entry(kname, name, source, replaces, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[kname],
                 "max_abs_err": stats[kname]["err"], "ms": ms,
-                "plain_ms": plain_ms, "times": stats[kname]["times"]}
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None, "times": stats[kname]["times"]}
 
     print(json.dumps({"kernels": [
         entry("B1", "rns2_sliding", "paillier_tpu_torch/csrc/rns2_sliding.cu",
-              "paillier_tpu/bigint/pallas_rns2.py:185", b1_ms, b1_plain_ms),
+              "paillier_tpu/bigint/pallas_rns2.py:185", b1_ms, b1_plain_ms,
+              b1_bound),
         entry("B2", "rns2_modexp", "paillier_tpu_torch/csrc/rns2_modexp.cu",
-              "paillier_tpu/bigint/pallas_rns2.py:52", b2_ms, b2_plain_ms),
+              "paillier_tpu/bigint/pallas_rns2.py:52", b2_ms, b2_plain_ms,
+              b2_bound),
+        entry("B3", "rns2_fixed_base",
+              "paillier_tpu_torch/csrc/rns2_fixed_base.cu",
+              "paillier_tpu/bigint/pallas_rns2.py:360", b3s["ms"],
+              b3s["plain_ms"], b3_bound),
+        entry("B4", "limb_modexp", "paillier_tpu_torch/csrc/limb_modexp.cu",
+              "paillier_tpu/bigint/pallas_kernels.py:155", b4_ms, b4_plain_ms,
+              b4_bound),
     ]}), flush=True)
     print(f"nvidia-smi: {smi_name_power()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,20 +5,22 @@ ladders as hand-written CUDA kernels for NVIDIA Hopper (sm_90a).  The JAX
 package ``paillier_tpu`` is the reference it is held against, bit for
 bit; this package never imports JAX.
 
-Ported so far: key generation, regular encryption at levels 1 and 2 and
-nested encryption, generic decryption at levels 1 and 2, CRT decryption
-at level 1 and nested decryption, and the homomorphic operations
-(``homomorphic.add``, ``sub``, ``const_mult``, ``randomize``,
-``aggregate``, ``aggregate_streaming`` and the nested ones), on the CPU
-(plain torch) or on a CUDA device (kernels B1 and B2, built from
+Ported: key generation (with the device-batched prime search), regular
+and alternative encryption at levels 1 and 2 and nested encryption,
+generic decryption at levels 1 and 2, CRT decryption at level 1 and
+nested decryption, the homomorphic operations (``homomorphic.add``,
+``sub``, ``const_mult``, ``randomize``, ``aggregate``,
+``aggregate_streaming``, the nested ones) and ``extract_randomness``, on
+the CPU (plain torch) or on a CUDA device (kernels B1-B4, built from
 ``csrc/`` with nvcc at first use).  The names are the JAX package's.
 Entry points that make ciphertexts take an explicit ``device``; the
-homomorphic operations work on the device of their ciphertexts.
+homomorphic operations work on the device of their ciphertexts; the
+device prime search runs on the card unless given ``device="cpu"``.
 
     import random
     from paillier_tpu_torch import (Ciphertext, Decryptor, Encryptor,
                                     homomorphic, keygen)
-    sk, pk = keygen(2048, random.Random(1))
+    sk, pk = keygen(2048, random.Random(1), device_primes=False)
     ct = Encryptor(pk, device="cuda").encrypt([1, 2, 3])
     total = homomorphic.aggregate(pk, ct)
     Decryptor(sk, crt=True, device="cuda").decrypt(
@@ -30,14 +32,15 @@ from .config import Config, get_config, set_config
 from .core import homomorphic
 from .core.decrypt import Decryptor, decrypt_nested_layer, nested_decrypt
 from .core.encrypt import Encryptor, nested_encrypt
-from .core.keygen import keygen
+from .core.keygen import device_batched_prime, keygen
 from .core.keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
                         MIXED, REGULAR, Ciphertext, DeviceKey, PublicKey,
                         SecretKey, decode_batch, encode_batch)
 
 __all__ = ["host", "montgomery", "vpu", "Config", "get_config", "set_config",
            "homomorphic", "Decryptor", "decrypt_nested_layer",
-           "nested_decrypt", "Encryptor", "nested_encrypt", "keygen",
+           "nested_decrypt", "Encryptor", "nested_encrypt",
+           "device_batched_prime", "keygen",
            "ALTERNATIVE", "DEFAULT_LEVEL", "LEVEL_ONE", "LEVEL_TWO", "MIXED",
            "REGULAR", "Ciphertext", "DeviceKey", "PublicKey", "SecretKey",
            "decode_batch", "encode_batch"]

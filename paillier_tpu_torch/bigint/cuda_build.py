@@ -9,8 +9,9 @@ stale build.  The wrappers load the library with ``ctypes`` and launch on
 PyTorch's current stream.  Nothing here runs at import time, and nothing
 falls back: a missing ``nvcc`` or a failed build raises.
 
-Also here: what both ladder kernels' wrappers share (the ``__dp4a``
-matrix packing and the checks of a context against an operand).
+Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
+``__dp4a`` matrix packing and the checks of a context against an
+operand).
 """
 
 from __future__ import annotations

@@ -32,9 +32,12 @@ and M2 >= 8*lambda*N (see the JAX module for the full derivation).
 The ladders are the hot paths, each a hand-written kernel on a CUDA
 tensor and its plain version on a CPU tensor: :func:`rns2_pow_sliding`
 (shared exponent, sliding window: ``sliding_kernel.rns2_pow_sliding_b1``
-or :func:`rns2_pow_sliding_plain`) and :func:`rns2_pow` (fixed window,
+or :func:`rns2_pow_sliding_plain`), :func:`rns2_pow` (fixed window,
 shared or per-element exponents: ``modexp_kernel.rns2_pow_b2`` or
-:func:`rns2_pow_plain`).
+:func:`rns2_pow_plain`) and :func:`rns2_pow_fixed_base` (comb over a
+fixed-base table, per-element exponents:
+``fixed_base_kernel.rns2_pow_fixed_base_b3`` or
+:func:`rns2_pow_fixed_base_plain`).
 """
 
 from __future__ import annotations
@@ -552,6 +555,75 @@ def rns2_pow_sliding(ctx: Rns2Context, x, sched, window: int = 6,
     CPU tensor (the wrapper decides by the tensor's device)."""
     from .sliding_kernel import rns2_pow_sliding_b1
     return rns2_pow_sliding_b1(ctx, x, sched, window, fin=fin)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-base exponentiation (comb method: zero squarings)
+# ---------------------------------------------------------------------------
+
+def build_fixed_base_table(eng: "Rns2Engine", base_int: int, n_digits: int,
+                           window: int = 4) -> torch.Tensor:
+    """Residue table T[step*2^w + d] = (base^(d * 2^(w*(D-1-step))) * M)
+    mod N in Montgomery form, step 0 = most-significant digit; int32
+    [D*2^w, C] canonical residues on the engine's device.
+
+    With this table a fixed-base power is D-1 Montgomery multiplies and
+    zero squarings: the comb method for Damgard-Jurik "alternative"
+    encryption h_s^r (reference: paillier.go:221-238), where the base is
+    the public h_s and only the short exponent r varies per element.
+    The same host integers as ``paillier_tpu.bigint.rns2``'s table.
+    """
+    spec = eng.spec
+    N, M = spec.N, spec.M
+    g = [base_int % N]
+    for _ in range(1, n_digits):
+        x = g[-1]
+        for _ in range(window):
+            x = (x * x) % N
+        g.append(x)
+    vals = []
+    for step in range(n_digits):
+        gi = g[n_digits - 1 - step]
+        cur = M % N                      # d=0 -> 1 in Montgomery form
+        for _ in range(1 << window):
+            vals.append(cur)
+            cur = (cur * gi) % N
+    limbs = host.ints_to_limbs(vals, eng.converter.L).astype(np.int64)
+    return eng.from_limbs(torch.as_tensor(limbs, device=eng.device))
+
+
+def rns2_pow_fixed_base_plain(ctx: Rns2Context, table, digits,
+                              window: int = 4, fin=None):
+    """base^e_b (times ``fin`` when given) by the comb table, in plain
+    torch.
+
+    Mirrors ``paillier_tpu.bigint.rns2.rns2_pow_fixed_base_jnp``: acc =
+    table[0][d_0], then one lazy Montgomery multiply by table[j][d_j] per
+    later digit, and the exact exit multiply by 1, or by ``fin``
+    (canonical [..., C] residues: encryption's G^m, fused as in the
+    sliding ladder).  table: int [D*2^w, C] from
+    :func:`build_fixed_base_table`; digits: int [..., D] per element,
+    MSB-first.  Output: canonical residues of a value < lambda*N.
+    """
+    digits = torch.as_tensor(digits).to(table.device).long()
+    D = digits.shape[-1]
+    C = table.shape[-1]
+    tbl = table.to(torch.int32).reshape(D, 1 << window, C)
+    acc = tbl[0][digits[..., 0]]
+    for j in range(1, D):
+        acc = rns2_mont_mul_values(ctx, acc, tbl[j][digits[..., j]],
+                                   lazy=True)
+    last = _const_row(ctx, I1_ONE, I2_ONE).expand(acc.shape) if fin is None \
+        else fin
+    return rns2_mont_mul_values(ctx, acc, last)
+
+
+def rns2_pow_fixed_base(ctx: Rns2Context, table, digits, window: int = 4,
+                        fin=None):
+    """Dispatcher: kernel B3 for a CUDA table, the plain comb for a CPU
+    table (the wrapper decides by the table's device)."""
+    from .fixed_base_kernel import rns2_pow_fixed_base_b3
+    return rns2_pow_fixed_base_b3(ctx, table, digits, window, fin=fin)
 
 
 # ---------------------------------------------------------------------------

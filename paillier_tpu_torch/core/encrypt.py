@@ -1,7 +1,8 @@
 """Batched encryption (reference: paillier.go:185-289).
 
-Regular encryption:  c = G^m * r^(n^s) mod n^(s+1)   (G = n+1, s = 1, 2)
-Nested encryption:   Enc_2(Enc_1(m).c)
+Regular encryption:      c = G^m * r^(n^s) mod n^(s+1)  (G = n+1, s = 1, 2)
+Alternative encryption:  c = G^m * h_s^r  mod n^(s+1),  r < K
+Nested encryption:       Enc_2(Enc_1(m).c)
 
 G^m uses the binomial identity (1+n)^m = 1 + m*n (+ C(m,2)*n^2) mod
 n^(s+1): constant-operand limb products (int8 Toeplitz matmuls,
@@ -13,7 +14,10 @@ space, at level 2 in limbs and converted once.  The port takes the RNS
 engine at every key size; the JAX package's limb-Montgomery branch for
 small keys is not ported.
 
-Not ported yet: alternative encryption h_s^r (ROADMAP A.8, kernel B3).
+h_s^r is the comb over a batch-shared table of the fixed base h_s with
+per-element short exponents r < K = 2^(secparam/2) (reference:
+paillier.go:221-238): kernel B3 on a CUDA tensor, D multiplies and no
+squarings; G^m rides its exit multiply as in regular encryption.
 """
 
 from __future__ import annotations
@@ -22,11 +26,17 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..bigint import host
 from ..bigint import limbmm as lm
+from ..bigint import montgomery as mont
 from ..bigint import vpu
 from ..ops import random as prand
 from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, REGULAR,
                    Ciphertext, DeviceKey, PublicKey, encode_batch)
+
+# Digit width of the comb (kernel B3's table has 2^COMB_WINDOW entries per
+# digit; the JAX default window).
+COMB_WINDOW = 4
 
 
 def gm_binomial(dk: DeviceKey, m: torch.Tensor, level: int) -> torch.Tensor:
@@ -88,13 +98,42 @@ def encrypt_with_r_rns_fused_kernel(dk: DeviceKey, eng, nrow: torch.Tensor,
     return dk._widen(eng.to_limbs_mod(c_rns), LEVEL_ONE)
 
 
+def alt_encrypt_comb_kernel(dk: DeviceKey, eng, table: torch.Tensor,
+                            m: torch.Tensor, r_digits: torch.Tensor,
+                            level: int, nrow: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """c = G^m * h_s^r mod n^(s+1) by the comb (no squarings).
+
+    m: limbs [..., sL]; r_digits: int32 [..., D], MSB-first
+    base-2^COMB_WINDOW digits of r < K; table:
+    ``DeviceKey.comb_table(level, COMB_WINDOW)``.  G^m
+    is made in residue space at level 1 (``nrow``: true-form residues of
+    n) and from the binomial limbs at level 2, and rides the comb's exit
+    multiply; the JAX function multiplies it in afterwards
+    (``eng.mul``).  The integer, and so every output limb, is the same."""
+    from ..bigint.rns2 import rns2_one_plus_mul, rns2_pow_fixed_base
+    if level == LEVEL_ONE:
+        m_wide = torch.nn.functional.pad(m, (0, dk.L))        # width 2L
+        gm = rns2_one_plus_mul(eng.ctx, eng.from_limbs(m_wide), nrow)
+    else:
+        gm = eng.from_limbs(gm_binomial(dk, m, level))
+    lead = r_digits.shape[:-1]
+    C = gm.shape[-1]
+    hr = rns2_pow_fixed_base(eng.ctx, table,
+                             r_digits.reshape(-1, r_digits.shape[-1]),
+                             COMB_WINDOW, fin=gm.reshape(-1, C))
+    return dk._widen(eng.to_limbs_mod(hr.reshape(lead + (C,))), level)
+
+
 class Encryptor:
     """Batched encryption for one public key on one torch device.
 
-    ``method=REGULAR`` at levels 1 and 2; alternative encryption raises
-    ``NotImplementedError`` (ROADMAP A.8).  ``window`` keeps the JAX
-    signature's place and is ignored: the ladder here is the sliding one,
-    whose window is Config.sliding_window.
+    ``method`` is REGULAR (r^(n^s), paillier.go:206-218) or ALTERNATIVE
+    (h_s^r with short randomness r < K, paillier.go:221-238), at levels 1
+    and 2.  ``window`` keeps the JAX signature's place and is ignored: the
+    regular ladder is the sliding one, whose window is
+    Config.sliding_window, and the comb's digits are COMB_WINDOW bits (the
+    JAX default).
     """
 
     def __init__(self, pk: PublicKey, level: int = DEFAULT_LEVEL,
@@ -102,9 +141,6 @@ class Encryptor:
                  *, device):
         if method not in (REGULAR, ALTERNATIVE):
             raise ValueError(f"unknown encryption method {method!r}")
-        if method == ALTERNATIVE:
-            raise NotImplementedError(
-                "alternative encryption is not ported yet (ROADMAP A.8)")
         if level not in (LEVEL_ONE, LEVEL_TWO):
             raise ValueError(f"level must be 1 or 2, got {level}")
         self.pk = pk
@@ -115,10 +151,17 @@ class Encryptor:
         self.m_limbs = level * self.dk.L
         self.c_limbs = (level + 1) * self.dk.L
         eng = self.dk.rns(level)
+        nrow = None
         if level == LEVEL_ONE:
             spec = eng.spec
             nrow = torch.tensor([pk.n % mi for mi in spec.b1 + spec.b2],
                                 dtype=torch.int32, device=self.dk.device)
+        if method == ALTERNATIVE:
+            self._r_bits = pk.k.bit_length() - 1   # r < K = 2^(secparam/2)
+            table = self.dk.comb_table(level, COMB_WINDOW)
+            self._fn = lambda m, rd: alt_encrypt_comb_kernel(
+                self.dk, eng, table, m, rd, level, nrow)
+        elif level == LEVEL_ONE:
             self._fn = lambda m, r: encrypt_with_r_rns_fused_kernel(
                 self.dk, eng, nrow, m, r, pk.n)
         else:
@@ -141,9 +184,19 @@ class Encryptor:
         count = m[..., 0].numel()
         if rs is None:
             rs = self.sample_r(count)
-        r = encode_batch(rs, self.c_limbs, device=dev).reshape(
-            m.shape[:-1] + (self.c_limbs,))
-        return Ciphertext(c=self._fn(m, r), level=self.level, method=REGULAR)
+        if self.method == REGULAR:
+            r = encode_batch(rs, self.c_limbs, device=dev).reshape(
+                m.shape[:-1] + (self.c_limbs,))
+            return Ciphertext(c=self._fn(m, r), level=self.level,
+                              method=REGULAR)
+        # digits of r mod K, made on the device from the limbs of r mod K
+        k = self.pk.k
+        nd = mont.n_digits_for_bits(self._r_bits, COMB_WINDOW)
+        rl = encode_batch([ri % k for ri in rs],
+                          host.limbs_for_bits(self._r_bits), device=dev)
+        rd = mont.limbs_to_digits(rl, COMB_WINDOW, nd)
+        return Ciphertext(c=self._fn(m, rd.reshape(m.shape[:-1] + (nd,))),
+                          level=self.level, method=ALTERNATIVE)
 
 
 def nested_encrypt(pk: PublicKey, ms: Sequence[int], rng=None, *,

@@ -9,14 +9,13 @@ aggregate : modular product over an axis (the 1M-ciphertext aggregation
             path, BASELINE config #3): a log-depth tree of RNS
             Montgomery products with a single M-power fix-up
 nested_*  : ops on (level-2, level-1) ciphertext pairs
+extract_randomness: recover the randomness r of a regular ciphertext
+            with the secret key (its mod-n ladder: kernel B4)
 
 Every product of two ciphertexts runs in residue space
 (``Rns2Engine.mul`` / ``mont_mul``); the ciphertexts' device is the
 device of the work.  Modular inverses (sub / nested_sub) are computed on
 the host in one batch.
-
-Not ported yet: ``extract_randomness``, whose r = z^(n^-s mod lambda)
-mod n ladder runs kernel B4 in the JAX package (ROADMAP B.4).
 """
 
 from __future__ import annotations
@@ -27,15 +26,19 @@ import numpy as np
 import torch
 
 from ..bigint import host
+from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
+from ..bigint import vpu
 from ..ops import random as prand
-from .encrypt import Encryptor
+from .encrypt import Encryptor, gm_binomial
 from .keys import (LEVEL_ONE, LEVEL_TWO, MIXED, REGULAR, Ciphertext,
                    PublicKey, SecretKey, decode_batch, encode_batch)
 
 
-# Digit width of kernel B2's per-element exponents (the JAX default).
+# Digit width of kernel B2's per-element exponents and of kernel B4's
+# ladder in extract_randomness (the JAX default).
 B2_WINDOW = 4
+B4_WINDOW = 4
 
 
 def _dk(pk: PublicKey, ct: Ciphertext):
@@ -231,8 +234,30 @@ def nested_randomize(pk: PublicKey, ct: Ciphertext, rng=None,
 
 def extract_randomness(sk: SecretKey, ct: Ciphertext) -> list[int]:
     """Recover the encryption randomness r with the secret key
-    (reference: operations.go:75-91).  Not ported yet: its mod-n ladder
-    is kernel B4's in the JAX package (ROADMAP B.4)."""
-    raise NotImplementedError(
-        "extract_randomness is not ported yet: it waits for kernel B4 "
-        "(ROADMAP B.4)")
+    (reference: operations.go:75-91 "ExtractRandonness" [sic]).
+
+    z = c * G^{-m} mod n^(s+1) encrypts 0, so z = r^(n^s); then
+    r = z^((n^s)^{-1} mod lambda) mod n: the plain decryption (kernel B1
+    on a CUDA tensor), G^{-m} by the binomial shortcut, one RNS product,
+    a fold to mod n and the limb Montgomery ladder (kernel B4).
+    """
+    from .decrypt import Decryptor
+    dk = _dk(sk, ct)
+    s = ct.level
+    ns = sk.n ** s
+    v = Decryptor(sk, s, device=dk.device).decrypt_array(ct)   # m [..., sL]
+    # G^{-m} = G^{(n^s - m) mod n^s}; m == 0 gives G^0 = 1
+    ns_l = encode_batch([ns], s * dk.L, device=dk.device)[0]
+    negv, _ = vpu.sub(ns_l.expand(v.shape), v)
+    negv = torch.where(vpu.is_zero(v).unsqueeze(-1), torch.zeros_like(negv),
+                       negv)
+    z = dk.mul(s, ct.c.to(dk.device), gm_binomial(dk, negv, s))
+    # r lives mod n: one fold of z (< n^(s+1)) and a small Barrett
+    z_mod_n = lm.fold_mod(z, dk.fold_plan(sk.n, z.shape[-1]),
+                          dk.barrett_plan(sk.n))
+    ns_inv = pow(ns, -1, sk.lam)                   # shared secret exponent
+    nd = mont.n_digits_for_bits(ns_inv.bit_length() or 1, B4_WINDOW)
+    digits = torch.as_tensor(mont.exp_digits(ns_inv, B4_WINDOW, nd),
+                             device=dk.device)
+    r = mont.mont_pow_digits(dk.mont_ctx_n(), z_mod_n, digits, B4_WINDOW)
+    return decode_batch(r.reshape(-1, dk.L))

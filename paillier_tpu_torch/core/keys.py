@@ -103,12 +103,13 @@ class SecretKey(PublicKey):
 
 
 class DeviceKey:
-    """Per-device engines and limb plans for one public key.
+    """Per-device engines, limb plans and tables for one public key.
 
     Everything here is derived from the public key alone; secret-derived
     constants (lambda^-1, the CRT plans) stay with the Decryptor.  The RNS
-    engine of each level and each plan are built on first use (host-side
-    prime search and matrices, then one copy to ``device``)."""
+    engine of each level, each plan and each comb table are built on
+    first use (host-side prime search and matrices, then one copy to
+    ``device``)."""
 
     def __init__(self, pk: PublicKey, device):
         self.pk = pk
@@ -194,6 +195,36 @@ class DeviceKey:
     def inv2_n_plan(self):
         """(x * 2^-1) mod n for a 2L-limb x: level-2 G^m's C(m, 2)."""
         return self.mod_mul_plan((self.pk.n + 1) // 2, self.pk.n, 2 * self.L)
+
+    def hs_int_for_level(self, level: int) -> int:
+        """Alternative encryption's generator h_s as a Python int (host
+        pow; reference: paillier.go:416-434): h1 = (n-h)^n mod n^2,
+        h2 = (n^2-h)^(n^2) mod n^3."""
+        pk = self.pk
+        if level == LEVEL_ONE:
+            return self._plan(("hs", level),
+                              lambda: pow(pk.n - pk.h, pk.n, pk.n2))
+        return self._plan(("hs", level),
+                          lambda: pow(pk.n2 - pk.h, pk.n2, pk.n3))
+
+    def comb_table(self, level: int, window: int) -> torch.Tensor:
+        """The comb table of h_s for exponents r < K (rns2
+        .build_fixed_base_table: int32 [D*2^w, C] on this device), cached
+        per (level, window)."""
+        from ..bigint.montgomery import n_digits_for_bits
+        from ..bigint.rns2 import build_fixed_base_table
+        nd = n_digits_for_bits(self.pk.k.bit_length() - 1, window)
+        return self._plan(("comb", level, window),
+                          lambda: build_fixed_base_table(
+                              self.rns(level), self.hs_int_for_level(level),
+                              nd, window))
+
+    def mont_ctx_n(self):
+        """Limb Montgomery context of n at L limbs (kernel B4's modulus in
+        ``extract_randomness``)."""
+        from ..bigint.montgomery import make_mont_ctx
+        return self._plan(("mont", self.pk.n), lambda: make_mont_ctx(
+            self.pk.n, self.L, device=self.device))
 
     def inv2fac_n2_plan(self):
         """(x * n * 2^-1) mod n^2 for a 2L-limb x: level-2 recovery."""

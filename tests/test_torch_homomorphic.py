@@ -186,7 +186,20 @@ def test_nested_ops_parity(keys):
 
 
 def test_extract_randomness_raises(keys):
-    tsk, _ = keys
-    _, (tx, _) = _inputs(tsk, 2, 60)
-    with pytest.raises(NotImplementedError, match="B.4"):
-        hom.extract_randomness(tsk, tx)
+    """extract_randomness (plain decryption, G^-m, one RNS product, the
+    limb ladder of kernel B4's plain version) against the JAX package on
+    its RNS engine, at levels 1 and 2: the same integers, and the
+    randomness that encrypted."""
+    tsk, jsk = keys
+    rng = random.Random(60)
+    for level in (1, 2):
+        ms = [rng.randrange(tsk.plaintext_modulus(level)) for _ in range(3)]
+        enc = _enc1 if level == 1 else _enc2
+        c_ints = enc(tsk, ms, random.Random(0))
+        # the rs of _enc1 / _enc2 are the draws of random.Random(0)
+        r0 = random.Random(0)
+        rs = [r0.randrange(1, tsk.n) for _ in ms]
+        tct, jct = _pair(tsk, c_ints, level)
+        got = hom.extract_randomness(tsk, tct)
+        assert got == rs
+        assert got == jhom.extract_randomness(jsk, jct)

@@ -1,5 +1,6 @@
-"""Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu) and B2
-(csrc/rns2_modexp.cu) and what surrounds them: the wrappers' checks, the
+"""Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu), B2
+(csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
+(csrc/limb_modexp.cu) and what surrounds them: the wrappers' checks, the
 __dp4a matrix packing, the build hash and the launch counters.  This
 file imports no JAX, so its GPU tests also run on a machine without it:
 
@@ -16,9 +17,13 @@ import pytest
 import torch
 
 from paillier_tpu_torch.bigint import cuda_build
+from paillier_tpu_torch.bigint import fixed_base_kernel as fb
 from paillier_tpu_torch.bigint import modexp_kernel as mx
+from paillier_tpu_torch.bigint import mont_kernel as mk
+from paillier_tpu_torch.bigint import montgomery as tmont
 from paillier_tpu_torch.bigint import rns2 as tr
 from paillier_tpu_torch.bigint import sliding_kernel as sk
+from paillier_tpu_torch.bigint import host
 from paillier_tpu_torch.bigint.montgomery import exp_digits, n_digits_for_bits
 
 torch.set_num_threads(2)
@@ -36,8 +41,7 @@ def eng256_cpu():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("kernels B1 and B2 are CUDA C++: need an NVIDIA GPU and "
-                    "nvcc")
+        pytest.skip("kernels B1-B4 are CUDA C++: need an NVIDIA GPU and nvcc")
     return torch.device("cuda")
 
 
@@ -162,9 +166,11 @@ def test_b2_cpu_tensor_takes_plain_version(eng256_cpu, per_row):
 def test_build_hash_covers_included_headers(tmp_path):
     """An edit of a header that a kernel source includes changes the
     build's name, so a stale library is never loaded."""
-    for name in ("rns2_sliding.cu", "rns2_modexp.cu"):
+    for name in ("rns2_sliding.cu", "rns2_modexp.cu", "rns2_fixed_base.cu"):
         files = cuda_build.source_files(cuda_build.CSRC / name)
         assert [f.name for f in files] == [name, "rns2_mont.cuh"]
+    assert [f.name for f in cuda_build.source_files(
+        cuda_build.CSRC / "limb_modexp.cu")] == ["limb_modexp.cu"]
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
     (tmp_path / "b.cuh").write_text("int b;\n")
     src = tmp_path / "k.cu"
@@ -174,6 +180,60 @@ def test_build_hash_covers_included_headers(tmp_path):
     before = cuda_build.source_hash(src)
     (tmp_path / "b.cuh").write_text("int b2;\n")
     assert cuda_build.source_hash(src) != before
+
+
+def test_b3_wrapper_checks(eng256_cpu):
+    """Kernel B3's wrapper refuses what the kernel does not take, before
+    it would build or launch, and takes a CPU table to the plain comb."""
+    eng = eng256_cpu
+    n = eng.spec.N
+    table = tr.build_fixed_base_table(eng, 3, 4, 4)         # D = 4 digits
+    dig = torch.as_tensor([[1, 2, 3, 4], [0, 0, 0, 15]])
+    before = fb.rns2_pow_fixed_base_b3.launches
+    got = fb.rns2_pow_fixed_base_b3(eng.ctx, table, dig, 4)
+    assert fb.rns2_pow_fixed_base_b3.launches == before
+    assert eng.decode(got) == [pow(3, 0x1234, n), pow(3, 15, n)]
+    with pytest.raises(ValueError, match="CUDA"):
+        fb.rns2_pow_fixed_base_b3(eng.ctx, table.to("meta"), dig, 4)
+
+
+def test_b4_wrapper_constants_and_cpu_path():
+    """Kernel B4's wrapper: a CPU tensor runs the plain ladder without a
+    launch; the kernel's constants are n, R^2 mod n and the low word of
+    -n^-1 mod R, rebuilt for R = 2^(16 (L + 1)) at an odd L; rows per
+    block follow the shared memory of a row."""
+    rng = random.Random(0xB4)
+    for bits, L in ((96, 6), (80, 5), (2048, 128)):
+        n = _odd(rng, bits)
+        ctx = tmont.make_mont_ctx(n, device="cpu")
+        kn, n0, r2, Lk = mk._kernel_ctx(ctx)
+        assert Lk == L + L % 2 and kn.dtype == torch.int32
+        R = 1 << (16 * Lk)
+        assert int(n0[0]) % (1 << 32) == (-pow(n, -1, 1 << 32)) % (1 << 32)
+        want = tmont.make_mont_ctx(n, Lk, device="cpu")
+        assert torch.equal(kn.long(), want.n)
+        assert torch.equal(r2.long(), want.r2)
+        assert int(sum(int(v) << (16 * i) for i, v in enumerate(r2))) == \
+            R * R % n
+    stacked = tmont.stack_mont_ctx([_odd(rng, 80) for _ in range(3)], 5,
+                                   device="cpu")
+    kn, n0, r2, Lk = mk._kernel_ctx(stacked)
+    assert kn.shape == (3, 6) and n0.shape == (3,) and r2.shape == (3, 6)
+    assert mk.rows_per_block(5124, 32) == 32          # nw = 64, w = 4
+    assert mk.rows_per_block(10244, 32) == 22         # nw = 128, w = 4
+    with pytest.raises(ValueError, match="window"):
+        mk.rows_per_block(300000, 32)
+    n = _odd(rng, 128)
+    ctx = tmont.make_mont_ctx(n, device="cpu")
+    xs = [2, 3, n - 1]
+    x = torch.as_tensor(host.ints_to_limbs(xs, 8).astype(np.int64))
+    digits = torch.as_tensor(exp_digits(65537, 4, 5))
+    before = mk.mont_pow_b4.launches
+    got = mk.mont_pow_b4(ctx, x, digits, 4)
+    assert mk.mont_pow_b4.launches == before
+    assert host.limbs_to_ints(got.numpy()) == [pow(v, 65537, n) for v in xs]
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.mont_pow_b4(ctx, x.to("meta"), digits, 4)
 
 
 @pytest.mark.cuda
@@ -310,3 +370,99 @@ def test_level2_and_homomorphic_on_cuda(cuda_device):
         a * k % pk.n for a, k in zip(ys, ks)]
     assert sk.rns2_pow_sliding_b1.launches > b1_0
     assert mx.rns2_pow_b2.launches == b2_0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,fin", [(256, 13, True), (4096, 9, False),
+                                           (6144, 5, True)])
+def test_kernel_b3_matches_plain_on_cuda(cuda_device, bits, rows, fin):
+    """Kernel B3 against the plain comb at k = 64, 320 and 512, with and
+    without fin, a ragged last tile and zero digits: bit-identical and
+    equal to Python's pow."""
+    rng = random.Random(bits + 3)
+    n = _odd(rng, bits)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    assert eng.spec.k == {256: 64, 4096: 320, 6144: 512}[bits]
+    base = rng.randrange(2, n)
+    es = [rng.getrandbits(64) for _ in range(rows - 1)] + [0]
+    fs = [rng.randrange(n) for _ in range(rows)] if fin else [1] * rows
+    nd = n_digits_for_bits(64, 4)
+    dig = torch.as_tensor(np.stack([exp_digits(e, 4, nd) for e in es]),
+                          device=cuda_device)
+    table = tr.build_fixed_base_table(eng, base, nd, 4)
+    f = eng.encode(fs) if fin else None
+    before = fb.rns2_pow_fixed_base_b3.launches
+    got = fb.rns2_pow_fixed_base_b3(eng.ctx, table, dig, 4, fin=f)
+    want = tr.rns2_pow_fixed_base_plain(eng.ctx, table, dig, 4, fin=f)
+    assert fb.rns2_pow_fixed_base_b3.launches == before + 1
+    assert torch.equal(got, want)
+    assert eng.decode(got) == [pow(base, e, n) * v % n
+                               for e, v in zip(es, fs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows", [(256, 37), (80, 5), (2048, 3)])
+def test_kernel_b4_matches_plain_on_cuda(cuda_device, bits, rows):
+    """Kernel B4 against the plain ladder: shared and per-row digits on a
+    shared modulus, and per-row moduli with per-row exponents (the Fermat
+    batch's form), an odd L (80 bits) and a block's ragged tail: equal
+    limbs and equal to Python's pow."""
+    rng = random.Random(bits + 4)
+    L = host.limbs_for_bits(bits)
+    n = _odd(rng, bits)
+    ctx = tmont.make_mont_ctx(n, device=cuda_device)
+    xs = [rng.randrange(n) for _ in range(rows)]
+    x = torch.as_tensor(host.ints_to_limbs(xs, L).astype(np.int64),
+                        device=cuda_device)
+    es = [rng.getrandbits(64) for _ in range(rows - 1)] + [0]
+    nd = n_digits_for_bits(64, 4)
+    per = torch.as_tensor(np.stack([exp_digits(e, 4, nd) for e in es]),
+                          device=cuda_device)
+    for digits, want_e in ((per, es), (per[0], [es[0]] * rows)):
+        before = mk.mont_pow_b4.launches
+        got = mk.mont_pow_b4(ctx, x, digits, 4)
+        assert mk.mont_pow_b4.launches == before + 1
+        assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, digits, 4))
+        assert host.limbs_to_ints(got.cpu().numpy()) == [
+            pow(v, e, n) for v, e in zip(xs, want_e)]
+    mods = [_odd(rng, bits) for _ in range(rows)]
+    sctx = tmont.stack_mont_ctx(mods, L, device=cuda_device)
+    got = mk.mont_pow_b4(sctx, x, per, 4)
+    assert torch.equal(got, tmont.mont_pow_digits_plain(sctx, x, per, 4))
+    assert host.limbs_to_ints(got.cpu().numpy()) == [
+        pow(v, e, m) for v, e, m in zip(xs, es, mods)]
+
+
+@pytest.mark.cuda
+def test_alt_extract_and_prime_search_on_cuda(cuda_device):
+    """Alternative encryption (B3, one launch per call) at levels 1 and 2,
+    extract_randomness (B4) and the device prime search (B4, one launch
+    per Fermat batch) on the card."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch import homomorphic as hom
+    from paillier_tpu_torch.core import keygen as kg
+    from paillier_tpu_torch.core.keys import decode_batch
+    sk_, pk = pt.keygen(512, random.Random(9))
+    rng = random.Random(10)
+    for level in (1, 2):
+        ms = [rng.randrange(pk.plaintext_modulus(level)) for _ in range(6)]
+        rs = [rng.randrange(1, pk.n) for _ in ms]
+        b3 = fb.rns2_pow_fixed_base_b3.launches
+        ct = pt.Encryptor(pk, level, pt.ALTERNATIVE,
+                          device=cuda_device).encrypt(ms, rs)
+        assert fb.rns2_pow_fixed_base_b3.launches == b3 + 1
+        N = pk.modulus_for_level(level)
+        hs = pk.device(cuda_device).hs_int_for_level(level)
+        assert decode_batch(ct.c) == [pow(1 + pk.n, m, N) * pow(hs, r % pk.k, N)
+                                      % N for m, r in zip(ms, rs)]
+        assert pt.Decryptor(sk_, level, device=cuda_device).decrypt(ct) == ms
+        reg = pt.Encryptor(pk, level, device=cuda_device).encrypt(ms, rs)
+        b4 = mk.mont_pow_b4.launches
+        assert hom.extract_randomness(sk_, reg) == rs
+        assert mk.mont_pow_b4.launches == b4 + 1
+    b4, batches = mk.mont_pow_b4.launches, kg.device_batched_prime.batches
+    p = pt.device_batched_prime(256, random.Random(11),
+                                congruent_3_mod_4=True, device=cuda_device)
+    assert p.bit_length() == 256 and p % 4 == 3 and host.is_probable_prime(p)
+    assert mk.mont_pow_b4.launches - b4 == \
+        kg.device_batched_prime.batches - batches > 0

@@ -139,17 +139,19 @@ def test_vectors_level1_regular():
 
 
 def test_unported_paths_raise(keys):
-    """What the port does not have yet raises, naming its ROADMAP item:
-    alternative encryption (A.8, kernel B3) and extract_randomness
-    (B.4, kernel B4); a bogus method is a ValueError."""
+    """The paths that raised before kernels B3 and B4 were ported now run:
+    alternative encryption at both levels round-trips, extract_randomness
+    returns the randomness; a bogus method is still a ValueError."""
     _, tsk, _ = keys
     pk = tsk.public()
     for level in (pt.LEVEL_ONE, pt.LEVEL_TWO):
-        with pytest.raises(NotImplementedError, match="A.8"):
-            pt.Encryptor(pk, level, method="alternative", device="cpu")
-    ct = pt.Encryptor(pk, rng=random.Random(1), device="cpu").encrypt([5])
-    with pytest.raises(NotImplementedError, match="B.4"):
-        pt.homomorphic.extract_randomness(tsk, ct)
+        enc = pt.Encryptor(pk, level, method="alternative",
+                           rng=random.Random(level), device="cpu")
+        ct = enc.encrypt([5, 0])
+        assert ct.method == pt.ALTERNATIVE
+        assert pt.Decryptor(tsk, level, device="cpu").decrypt(ct) == [5, 0]
+    ct = pt.Encryptor(pk, device="cpu").encrypt([5], [12345])
+    assert pt.homomorphic.extract_randomness(tsk, ct) == [12345]
     with pytest.raises(ValueError):
         pt.Encryptor(pk, method="bogus", device="cpu")
 
