@@ -11,14 +11,23 @@ non-zero):
                 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
                 (csrc/limb_modexp.cu), one nvcc each, all at once, into
                 build/paillier_tpu_torch/, and prints the build time and
-                ptxas' register and spill report of every instantiation.
+                ptxas' register and spill report of every instantiation;
+                counts the IMMA (int8 tensor-core) and IDP4A instructions
+                in the SASS of B1-B3 (cuobjdump -sass) and fails unless B1
+                has IMMA and no IDP4A (B2 and B3 keep IDP4A).
   3. kernel  -- each kernel against its plain torch version on the same
                 CUDA inputs: residues must be bit-identical (tolerance:
                 exact) and a few rows must equal Python's pow.
                 B1: k = 64 (256-bit modulus); the main path's shapes,
                 4096 rows at k = 320 (r^n * G^m mod n^2) and k = 192
                 (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3);
-                64 rows at k = 704 (a random odd 8192-bit modulus).
+                64 rows at k = 704 (a random odd 8192-bit modulus); each
+                k also the other way round (with fin where the main shape
+                has none, and without where it has it) on 33 rows with a
+                256-bit exponent.  Each main shape prints its tile rows
+                and us per Montgomery multiply, and the L2 bytes per
+                multiply and read rate that its shape implies (blocks x
+                both [2k, 2k] int8 matrices; worked out, not counted).
                 B2: shared and per-row digits at k = 64; per-row 2048-bit
                 exponents on 4096 rows at k = 320 (const_mult); 1024 rows
                 at k = 512 with the 1024 digits of level-1 ciphertexts
@@ -112,8 +121,10 @@ def ptxas_report(log: str) -> list[str]:
         m = re.search(r"entry function '([^']+)'", ln)
         if m:
             t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E", m.group(1))
-            name = f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t \
-                else m.group(1)
+            r = re.search(r"ILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
+            name = (f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t
+                    else f"<rows={r.group(1)},wide={r.group(2)},{r.group(3)}>"
+                    if r else m.group(1))
         elif "registers" in ln or "spill" in ln:
             out.append(f"{name} {ln.split(':', 1)[-1].strip()}")
     return out
@@ -133,6 +144,7 @@ def main() -> None:
     from paillier_tpu_torch import (Ciphertext, Decryptor, Encryptor,
                                     homomorphic as hom, keygen,
                                     nested_decrypt, nested_encrypt)
+    from paillier_tpu_torch.bigint import cuda_build
     from paillier_tpu_torch.bigint import fixed_base_kernel as fb_mod
     from paillier_tpu_torch.bigint import host as bhost
     from paillier_tpu_torch.bigint import modexp_kernel as mx_mod
@@ -179,6 +191,20 @@ def main() -> None:
     for name, mod in mods.items():
         for ln in ptxas_report(mod.build_log):
             phase("build", f"{name}{ln}")
+    sass = {}
+    for name in ("B1", "B2", "B3"):
+        code = cuda_build.sass(mods[name].SOURCE)
+        # IDP4A prints as IDP.4A (.S8.S8) in the SASS of sm_90
+        sass[name] = (len(re.findall(r"\bIMMA\.", code)),
+                      len(re.findall(r"\bIDP\.?4A\b", code)))
+    phase("build", "SASS instructions (IMMA, IDP4A): " + ", ".join(
+        f"{name} {v}" for name, v in sass.items()))
+    if sass["B1"][0] == 0 or sass["B1"][1] != 0:
+        fail(f"kernel B1's SASS has {sass['B1'][0]} IMMA and {sass['B1'][1]} "
+             f"IDP4A: its products are not on the int8 tensor cores")
+    if sass["B2"][1] == 0 or sass["B3"][1] == 0:
+        fail("no IDP4A found in the SASS of B2 / B3, which use __dp4a: the "
+             "instruction count does not see them")
 
     # -- 3. kernel vs plain ------------------------------------------------
     stats = {kname: {"err": 0, "n": 0, "times": []} for kname in mods}
@@ -306,6 +332,39 @@ def main() -> None:
     phase("main", f"keygen({KEY_BITS}) in {time.perf_counter() - t0:.2f} s")
     dk = pk.device(dev)
 
+    b1_lib = sk_mod.load()
+
+    def b1_tile(eng, rows, sched, ms):
+        """Tile rows and us per Montgomery multiply of a timed B1 shape,
+        with the L2 bytes per multiply its shape implies (blocks x both
+        [2k, 2k] int8 matrices, each read once per block; not a counter)
+        and the read rate that implies at the measured time."""
+        k = eng.spec.k
+        tile = b1_lib.rns2_sliding_rows(rows, k)
+        mults = (1 << 5) + 2 + int((sched[1:] >= -1).sum()) + \
+            int((sched[1:] >= 0).sum())                    # window 6
+        l2 = -(-rows // tile) * 2 * (2 * k) ** 2
+        us = ms * 1e3 / mults
+        return (f"tile {tile} rows, {us:.2f} us per multiply ({mults}); "
+                f"implied L2 reads {l2 / 1e6:.1f} MB per multiply, "
+                f"{l2 / us / 1e6:.2f} TB/s")
+
+    def b1_other_fin(eng, with_fin):
+        """B1 the other way round from the main shape: 33 rows, a 256-bit
+        exponent, with or without fin."""
+        N = eng.spec.N
+        xs = [rng.randrange(1, N) for _ in range(33)]
+        fs = [rng.randrange(N) for _ in range(33)] if with_fin else [1] * 33
+        x = residues(eng, xs)
+        f = residues(eng, fs) if with_fin else None
+        e = rng.getrandbits(256) | (1 << 255)
+        sched = sliding_window_schedule(e, 6)
+        label = f"k={eng.spec.k} rows=33 e=256-bit fin={with_fin}"
+        got, _, _ = compare("B1", lambda: b1(eng.ctx, x, sched, 6, fin=f),
+                            lambda: b1_plain(eng.ctx, x, sched, 6, fin=f),
+                            label)
+        check_pow(eng, xs, [e] * 4, fs, got, 4, f"B1 {label}")
+
     # B1 at the main path's shapes: k = 320 (r^n * G^m mod n^2) and k = 192
     # (c^(p-1) mod p^2), BATCH rows
     t0 = time.perf_counter()
@@ -321,7 +380,9 @@ def main() -> None:
     check_pow(eng_n2, xs, [pk.n] * 4, fs, got, 4, "B1 k=320")
     phase("kernel", f"B1 k={eng_n2.spec.k}, {BATCH} rows, e=n "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms")
+          f"kernel {b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; "
+          f"{b1_tile(eng_n2, BATCH, sched, b1_ms)}")
+    b1_other_fin(eng_n2, False)
 
     p2 = skey.p * skey.p
     eng_p2 = Rns2Engine(p2, device=dev)
@@ -335,7 +396,9 @@ def main() -> None:
     check_pow(eng_p2, xs, [skey.p - 1] * 4, [1] * 4, got, 4, "B1 k=192")
     phase("kernel", f"B1 k={eng_p2.spec.k}, {BATCH} rows, e=p-1 "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"{b1_tile(eng_p2, BATCH, sched, ms)}")
+    b1_other_fin(eng_p2, True)
 
     # B1 wide: k = 512 (level-2 encryption's r^(n^2) mod n^3), k = 704
     eng_n3 = dk.rns(2)
@@ -349,7 +412,9 @@ def main() -> None:
     check_pow(eng_n3, xs, [pk.n2] * 4, [1] * 4, got, 4, "B1 k=512")
     phase("kernel", f"B1 k={eng_n3.spec.k}, {L2_BATCH} rows, e=n^2 mod n^3 "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {b1w_ms:.3f} ms, plain {b1w_plain_ms:.3f} ms")
+          f"kernel {b1w_ms:.3f} ms, plain {b1w_plain_ms:.3f} ms; "
+          f"{b1_tile(eng_n3, L2_BATCH, sched, b1w_ms)}")
+    b1_other_fin(eng_n3, True)
 
     n8192 = rng.getrandbits(8192) | (1 << 8191) | 1
     eng_w = Rns2Engine(n8192, device=dev)
@@ -367,7 +432,9 @@ def main() -> None:
     check_pow(eng_w, xs, [e] * 4, fs, got, 4, "B1 k=704")
     phase("kernel", f"B1 k=704, 64 rows, 2048-bit e with fin "
           f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"{b1_tile(eng_w, 64, sched, ms)}")
+    b1_other_fin(eng_w, False)
     del eng_w, x, fin
 
     # B2 at the slice's shapes: per-row 2048-bit exponents at k = 320

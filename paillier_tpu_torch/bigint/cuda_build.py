@@ -10,8 +10,8 @@ PyTorch's current stream.  Nothing here runs at import time, and nothing
 falls back: a missing ``nvcc`` or a failed build raises.
 
 Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
-``__dp4a`` matrix packing and the checks of a context against an
-operand).
+matrix packings, ``__dp4a`` words for B2 and B3 and tensor-core
+fragments for B1, and the checks of a context against an operand).
 """
 
 from __future__ import annotations
@@ -70,12 +70,17 @@ def source_hash(source: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path(source: Path) -> Path:
+    """Where :func:`build` puts the library of ``source``."""
+    return BUILD_DIR / f"{source.stem}_{source_hash(source)}.so"
+
+
 def build(source: Path) -> tuple[ctypes.CDLL, str]:
     """Compile ``source`` (once per :func:`source_hash`) and load it.
 
     Returns the library and nvcc's output (with ptxas' register report;
     empty when the library was already built)."""
-    so = BUILD_DIR / f"{source.stem}_{source_hash(source)}.so"
+    so = library_path(source)
     log = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,12 +96,43 @@ def build(source: Path) -> tuple[ctypes.CDLL, str]:
     return ctypes.CDLL(str(so)), log
 
 
+def sass(source: Path) -> str:
+    """``cuobjdump -sass`` of the library :func:`build` made of ``source``
+    (the machine code the card runs; build it first)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(tool), "-sass", str(library_path(source))],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {source.name}: "
+                           f"{proc.stderr.strip()}")
+    return proc.stdout
+
+
 def pack_dp4a(e: torch.Tensor) -> torch.Tensor:
     """int8 [2k, 2k] -> int32 [2k/4, 2k]: word (q, j) holds the bytes
     e[4q + t, j], t = 0..3, in little-endian order (the __dp4a layout)."""
     C = e.shape[0]
     return (e.reshape(C // 4, 4, C).permute(0, 2, 1).contiguous()
             .view(torch.int32).reshape(C // 4, C))
+
+
+def pack_mma(e: torch.Tensor) -> torch.Tensor:
+    """int8 [2k, 2k] -> int8 [k/16, k/16, 2, 2, 32, 16], the A fragments
+    of ``mma.m16n8k32.row.col.s8`` over E^T (csrc/rns2_mont_mma.cuh):
+    [channel group cg][64-digit slice s][k32 step u][lo/hi h][lane][16 B].
+
+    Lane 4g + t holds, in register 2j + i (bytes 4 (2j + i) + b), the entry
+    E[64 s + 16 t + 8 u + 4 j + b, h k + 16 cg + 8 i + g]: fragment row
+    (channel) g + 8 i, fragment column (digit) 16 j + 4 t + b of step
+    2 s + u, whose digits are permuted within the 64-digit slice so that
+    a lane's B fragments of both steps are bytes 16 t .. 16 t + 15 of a
+    digit row."""
+    C = e.shape[0]
+    k = C // 2
+    # p = (s, t, u, j, b), column = (h, cg, i, g)
+    v = e.reshape(k // 32, 4, 2, 2, 4, 2, k // 16, 2, 8)
+    return v.permute(6, 0, 2, 5, 8, 1, 3, 7, 4).contiguous().reshape(
+        k // 16, k // 32, 2, 2, 32, 16)
 
 
 def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:
@@ -119,8 +155,9 @@ def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:
             raise ValueError(f"context {name} on {t.device}, x on {x.device}")
 
 
-def context_pointers(ctx) -> tuple:
+def context_pointers(ctx, pack=pack_dp4a) -> tuple:
     """The context as the kernels take it: contiguous ic1, ic2, f1, f2 and
-    the two dp4a-packed matrices (kept alive by the caller)."""
+    the two matrices packed by ``pack`` (:func:`pack_dp4a` for B2 and B3,
+    :func:`pack_mma` for B1; kept alive by the caller)."""
     return (ctx.ic1.contiguous(), ctx.ic2.contiguous(), ctx.f1.contiguous(),
-            ctx.f2.contiguous(), pack_dp4a(ctx.e1g), pack_dp4a(ctx.e2g))
+            ctx.f2.contiguous(), pack(ctx.e1g), pack(ctx.e2g))

@@ -3,8 +3,8 @@
 Replaces ``paillier_tpu/bigint/pallas_rns2.py:_sliding_kernel`` (wrapper
 ``rns2_pow_sliding_pallas``).  The kernel is hand-written CUDA C++ in
 ``paillier_tpu_torch/csrc/rns2_sliding.cu`` (its header note gives the
-layout and what bounds it; the Montgomery multiply is in
-``csrc/rns2_mont.cuh``, shared with kernel B2); :mod:`cuda_build` builds
+launch rule and what bounds it; the Montgomery multiply on int8 tensor
+cores is in ``csrc/rns2_mont_mma.cuh``); :mod:`cuda_build` builds
 it with ``nvcc`` for ``sm_90a`` at first use and binds its plain C entry
 point with ``ctypes``; it launches on PyTorch's current stream.
 
@@ -40,9 +40,9 @@ def load():
     lib, build_log = cuda_build.build(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rns2_sliding_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp,
-                                        vp, vp, vp, ci, ci, ci, vp]
+                                        vp, vp, vp, ci, ci, ci, ci, vp]
     lib.rns2_sliding_launch.restype = ci
-    lib.rns2_sliding_rows.argtypes = []
+    lib.rns2_sliding_rows.argtypes = [ci, ci]
     lib.rns2_sliding_rows.restype = ci
     _lib = lib
     return lib
@@ -55,9 +55,10 @@ def rns2_pow_sliding_b1(ctx: Rns2Context, x: torch.Tensor, sched,
 
     x: int32 [B, C] (or [C]) standard residues; sched: int32 [1+S] from
     rns2.sliding_window_schedule; fin: canonical int32 [B, C] or [C]
-    residues (None: 1).  Bit-identical to the plain version.  A CPU
-    tensor runs the plain version; a CUDA tensor launches the kernel
-    and adds one to ``rns2_pow_sliding_b1.launches``.
+    residues (None: 1).  The launcher picks the kernel's tile rows
+    (``rns2_sliding_rows``).  Bit-identical to the plain version.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernel and
+    adds one to ``rns2_pow_sliding_b1.launches``.
     """
     if x.device.type == "cpu":
         return rns2_pow_sliding_plain(ctx, x, sched, window, fin=fin)
@@ -82,19 +83,23 @@ def rns2_pow_sliding_b1(ctx: Rns2Context, x: torch.Tensor, sched,
                          f"below {T} and sentinels -2 / -1")
     sched_t = torch.as_tensor(sched, device=x.device)
     lib = load()
-    rows = lib.rns2_sliding_rows()
-    Bp = -(-B // rows) * rows
-    tbl = torch.empty((Bp, T, C), dtype=torch.int16, device=x.device)
-    out = torch.empty_like(x)
-    ic1, ic2, f1, f2, e1q, e2q = cuda_build.context_pointers(ctx)
+    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(
+        ctx, cuda_build.pack_mma)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
+        rows = lib.rns2_sliding_rows(B, ctx.k)
+        if rows <= 0:
+            raise RuntimeError(f"kernel B1's tile rule failed: cudaError "
+                               f"{-rows}")
+        tbl = torch.empty((-(-B // rows) * rows, T, C), dtype=torch.int16,
+                          device=x.device)
+        out = torch.empty_like(x)
         err = lib.rns2_sliding_launch(
             x.data_ptr(), fin.data_ptr() if fin is not None else None,
             sched_t.data_ptr(), sched_t.numel() - 1,
             ic1.data_ptr(), ic2.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-            e1q.data_ptr(), e2q.data_ptr(), tbl.data_ptr(), out.data_ptr(),
-            B, ctx.k, window, stream)
+            e1p.data_ptr(), e2p.data_ptr(), tbl.data_ptr(), out.data_ptr(),
+            B, ctx.k, window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B1 launch failed: cudaError {err}")
     rns2_pow_sliding_b1.launches += 1

@@ -178,7 +178,7 @@ class Decryptor:
     level 1; ``crt`` is ignored at level 2, as in the JAX package."""
 
     def __init__(self, sk: SecretKey, level: int = DEFAULT_LEVEL,
-                 crt: bool = False, *, device):
+                 crt: bool = False, *, device="cuda"):
         from ..bigint.engine import make_engine
         if level not in (LEVEL_ONE, LEVEL_TWO):
             raise ValueError(f"level must be 1 or 2, got {level}")
@@ -215,7 +215,8 @@ class Decryptor:
         return self._fn(ct.c.to(self.dk.device))
 
 
-def nested_decrypt(sk: SecretKey, ct: Ciphertext, *, device) -> list[int]:
+def nested_decrypt(sk: SecretKey, ct: Ciphertext, *, device="cuda"
+                   ) -> list[int]:
     """Peel two layers (reference: paillier.go:344-355), honouring the
     inner-zero edge case."""
     inner = decrypt_nested_layer(sk, ct, device=device)
@@ -225,7 +226,7 @@ def nested_decrypt(sk: SecretKey, ct: Ciphertext, *, device) -> list[int]:
     return [0 if iv == 0 else ov for iv, ov in zip(inner_vals, outer)]
 
 
-def decrypt_nested_layer(sk: SecretKey, ct: Ciphertext, *, device
+def decrypt_nested_layer(sk: SecretKey, ct: Ciphertext, *, device="cuda"
                          ) -> Ciphertext:
     """[[c]] -> [c] (reference: paillier.go:359-372)."""
     if ct.level == LEVEL_ONE:

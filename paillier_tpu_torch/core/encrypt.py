@@ -138,7 +138,7 @@ class Encryptor:
 
     def __init__(self, pk: PublicKey, level: int = DEFAULT_LEVEL,
                  method: str = REGULAR, window: int | None = None, rng=None,
-                 *, device):
+                 *, device="cuda"):
         if method not in (REGULAR, ALTERNATIVE):
             raise ValueError(f"unknown encryption method {method!r}")
         if level not in (LEVEL_ONE, LEVEL_TWO):
@@ -200,7 +200,7 @@ class Encryptor:
 
 
 def nested_encrypt(pk: PublicKey, ms: Sequence[int], rng=None, *,
-                   device) -> Ciphertext:
+                   device="cuda") -> Ciphertext:
     """Enc_2(Enc_1(m).c) (reference: paillier.go:200-203).
 
     The inner level-1 ciphertext limbs ([..., 2L], values < n^2) are

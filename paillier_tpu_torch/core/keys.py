@@ -79,7 +79,7 @@ class PublicKey:
         """n^s: the plaintext space at level s."""
         return self.n if level == LEVEL_ONE else self.n2
 
-    def device(self, device) -> "DeviceKey":
+    def device(self, device="cuda") -> "DeviceKey":
         """The cached :class:`DeviceKey` of this key on ``device``."""
         dev = torch.device(device)
         if dev not in self._devices:

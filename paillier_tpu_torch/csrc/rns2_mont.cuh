@@ -1,5 +1,5 @@
-// The Cox-Rower RNS Montgomery multiply shared by the ladder kernels B1
-// (rns2_sliding.cu) and B2 (rns2_modexp.cu).
+// The Cox-Rower RNS Montgomery multiply shared by the ladder kernels B2
+// (rns2_modexp.cu) and B3 (rns2_fixed_base.cu).
 //
 // It is rns2.rns2_mont_mul_pair on a tile of ROWS batch rows, and the
 // arithmetic matches the plain torch version bit for bit:

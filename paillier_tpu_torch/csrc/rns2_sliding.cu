@@ -7,145 +7,218 @@
 // sliding-window schedule (rns2.sliding_window_schedule): entry 0 is the
 // odd-power table index of the leading window; each later entry is -2
 // (skip), -1 (square) or d >= 0 (square, then multiply by table[d]).
-// Every step is the Montgomery multiply of rns2_mont.cuh (the tile
-// layout and the rounding rules are described there).
+// Every step is the tensor-core Montgomery multiply of rns2_mont_mma.cuh
+// (its layout and rounding rules are described there).
 //
 // What bounds it on an H100: per row and per Montgomery multiply, two
 // int8 base extensions [2k] x [2k, 2k], i.e. 2 * (2k)^2 multiply-adds
-// (819,200 at k = 320, ~2,360 multiplies for a 2048-bit exponent), plus
-// the reads of both [2k, 2k] int8 matrices.  The TPU kernel held the
-// matrices, the odd-power table and the accumulator in 100 MiB of VMEM;
-// an SM has at most 227 KB of shared memory, so this layout keeps the
-// matrices in L2 (rns2_mont.cuh), the odd-power table in a global int16
-// scratch [B', T, 2k] that the wrapper allocates, and only the tiles in
-// shared memory.  Tensor-core (mma/wgmma) products, TMA and a table
-// resident in shared memory are later work.
+// (819,200 at k = 320, ~2,370 multiplies for a 2048-bit exponent), and
+// per block and multiply the L2 reads of both [2k, 2k] int8 matrices
+// (2 (2k)^2 bytes).  The TPU kernel held the matrices, the odd-power
+// table and the accumulator in 100 MiB of VMEM; an SM has at most 227 KB
+// of shared memory, so the matrices stay in L2 (packed into mma fragment
+// order), the odd-power table in a global int16 scratch [B', T, 2k] that
+// the wrapper allocates, and only the int16 tiles in shared memory.  The
+// products run on the int8 tensor cores (mma.sync m16n8k32), and a block
+// of R rows reads the matrices once per multiply, so larger tiles read
+// less per row.  Measured on an H100 (700 W), a 4096-row ladder at
+// k = 320 spends about a third of its time in the elementwise stages and
+// their barriers and the rest in the products, where neither the L2
+// reads nor the mma issue alone accounts for it; the 16-row tiles at
+// k = 512 and 704 are bound by the L2 reads (PERF.md §5).
 //
-// Launch configurations, chosen by k at launch:
-//   k <= 320        ROWS = 8, __launch_bounds__(320, 2): 96 registers a
-//                   thread (no spills), two blocks share an SM.  Without
-//                   the second bound ptxas used 128 registers, one block
-//                   fit per SM, and a 4096-row ladder at k = 320 took
-//                   307 ms instead of 208 ms (H100 SXM, 700 W; tiles of
-//                   4 or 16 rows were slower or spilled).
-//   320 < k < 512   ROWS = 8, __launch_bounds__(704, 1), no pre-reduction
-//                   (k = 384 and 448).
-//   512 <= k <= 704 ROWS = 8, __launch_bounds__(704, 1) and the wide
-//                   pre-reduction (n^3 of a 2048-bit key at k = 512, n^2
-//                   of a 4096-bit key at k = 704): one block of up to 22
-//                   warps per SM; ptxas holds a thread to 80 registers
-//                   (164 B of spill stores, 804 B of spill loads); shared
-//                   memory 102 KB at k = 704.  Measured on an H100
-//                   (700 W): at k = 512 this beat __launch_bounds__(512,
-//                   1) (128 registers, no spills: 255 vs 268 ms for B1,
-//                   273 vs 325 ms for B2 at 1024 rows), and tiles of 4
-//                   rows lost at full load (k = 704, 1056 rows: 93 vs
-//                   60 ms).
-// k is a multiple of 64; the wrapper refuses anything else.
+// Launch (rns2_sliding_rows picks R from k, B and the device; the wrapper
+// passes it back to rns2_sliding_launch and sizes the table scratch by
+// it).  Instantiations:
+//   R = 32  k <= 320 only; __launch_bounds__(640, 1), 2k threads (a warp
+//           per 16-channel group; 20 warps at k = 320); 129,664 bytes of
+//           shared memory at k = 320.  4096 rows are 128 blocks, one wave
+//           on 132 SMs, each reading the matrices 4x less often than the
+//           8-row tiles of the dp4a kernel did (105 MB per multiply at
+//           k = 320).
+//   R = 16  __launch_bounds__(704, 1): 2k threads up to k = 320, else k
+//           (a warp per two groups); at k = 512 __launch_bounds__(512, 1),
+//           which gives a thread 128 registers instead of 80 and was 9%
+//           faster.
+//   R = 8   __launch_bounds__(704, 1).
+// Rule, from every tile timed at 512-8192 rows (k = 192, 320) and
+// 256-4096 rows (k = 512, 704) on an H100 (PERF.md §6,
+// scripts/ab_sliding.py):
+//   k <= 320: a block takes about as long whatever the grid (k = 320:
+//     ~27 ms at 8 rows, ~34 at 16, ~41 at 32 for e = n), so the time is
+//     the number of waves times a block's time.  A wave of R-row tiles
+//     holds SMs x (blocks an SM keeps resident, from the occupancy API)
+//     x R rows; take the tile whose one wave holds B with the fewest rows
+//     to spare (the larger tile on a tie: at k = 192, two resident 16-row
+//     blocks were slower than one 32-row block), and if no wave holds B
+//     the one with the most rows per wave.  On an H100 at k = 320: 8 rows
+//     up to 1056, 16 up to 2112, then 32; at k = 192: 8 up to 2112, then
+//     32.
+//   k > 320: the L2 reads of the matrices bind, so fewer blocks win: the
+//     largest tile whose grid keeps MIN_BLOCKS = 64 blocks (at 1024 rows,
+//     64 blocks of 16 rows beat 128 blocks of 8).
+// k is a multiple of 64 up to 704; the wrapper refuses anything else.
 
-#include "rns2_mont.cuh"
+#include "rns2_mont_mma.cuh"
 
 namespace {
 
-using namespace rns2;
+using namespace rns2mma;
 
-constexpr int ROWS = 8;          // batch rows per block
+constexpr int MIN_BLOCKS = 64;   // k > 320: blocks wanted before a larger tile
+constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use
 
-template <bool WIDE, int MAXT, int MINB>
-__global__ void __launch_bounds__(MAXT, MINB)
+template <int R, bool WIDE, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
 rns2_sliding_kernel(const int* __restrict__ x, const int* __restrict__ fin,
                     const int* __restrict__ sched, int n_steps,
                     const int* __restrict__ ic1, const int* __restrict__ ic2,
                     const float* __restrict__ f1, const float* __restrict__ f2,
-                    const int* __restrict__ e1q, const int* __restrict__ e2q,
+                    const int4* __restrict__ e1p, const int4* __restrict__ e2p,
                     int16_t* __restrict__ tbl, int* __restrict__ out,
                     int B, int k, int T) {
   extern __shared__ int4 smem_raw[];
-  const int i = threadIdx.x;
-  const int C = 2 * k;
-  const int row0 = blockIdx.x * ROWS;
-  Shared s;
-  Chan ch;
-  setup<ROWS>(s, ch, smem_raw, ic1, ic2, f1, f2, k, i);
-  int16_t* tb = tbl + (size_t)row0 * T * C;
-  int* a1 = s.acc1;
-  int* a2 = s.acc2;
+  Tile s;
+  Ctx cx;
+  setup<R>(s, cx, smem_raw, k);
+  cx.ic1 = ic1; cx.ic2 = ic2; cx.f1 = f1; cx.f2 = f2;
+  cx.e1p = e1p; cx.e2p = e2p;
+  const int row0 = blockIdx.x * R;
+  int16_t* tb = tbl + (size_t)row0 * T * 2 * k;
+  int16_t* a1 = s.acc1;
+  int16_t* a2 = s.acc2;
 
   // xm = x * entry (to Montgomery form); table[0] = xm
-  load_rows<ROWS>(a1, a2, x, row0, B, k, i);
-  mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k,
-                       ic1 + I_ENTRY * k, ic2 + I_ENTRY * k, 0,
-                       a1, a2, true, k, i);
-  store_tbl<ROWS>(tb, a1, a2, 0, T, k, i);
+  load_rows<R>(cx, a1, a2, x, row0, B);
+  fill_rows<R>(cx, s.opd1, s.opd2, ic1 + I_ENTRY * k, ic2 + I_ENTRY * k);
+  mont_mul<R, WIDE>(s, cx, a1, a2, s.opd1, s.opd2, a1, a2, true);
+  store_tbl<R>(cx, tb, a1, a2, 0, T);
   // opd = xm^2; table[v] = table[v-1] * xm^2
-  mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k, a1, a2, k,
-                       s.opd1, s.opd2, true, k, i);
+  mont_mul<R, WIDE>(s, cx, a1, a2, a1, a2, s.opd1, s.opd2, true);
   for (int v = 1; v < T; ++v) {
-    mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k, s.opd1, s.opd2, k,
-                         a1, a2, true, k, i);
-    store_tbl<ROWS>(tb, a1, a2, v, T, k, i);
+    mont_mul<R, WIDE>(s, cx, a1, a2, s.opd1, s.opd2, a1, a2, true);
+    store_tbl<R>(cx, tb, a1, a2, v, T);
   }
 
-  load_tbl<ROWS, false>(a1, a2, tb, sched, 0, T, k, i);
+  load_tbl<R>(cx, a1, a2, tb, sched[0], T);
   for (int step = 1; step <= n_steps; ++step) {
     const int d = sched[step];         // uniform across the block
     if (d >= -1)
-      mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k, a1, a2, k,
-                           a1, a2, true, k, i);
+      mont_mul<R, WIDE>(s, cx, a1, a2, a1, a2, a1, a2, true);
     if (d >= 0) {
-      load_tbl<ROWS, false>(s.opd1, s.opd2, tb, sched + step, 0, T, k, i);
-      mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k, s.opd1, s.opd2, k,
-                           a1, a2, true, k, i);
+      load_tbl<R>(cx, s.opd1, s.opd2, tb, d, T);
+      mont_mul<R, WIDE>(s, cx, a1, a2, s.opd1, s.opd2, a1, a2, true);
     }
   }
 
   // exit multiply: by fin (fused G^m) or by 1; canonical output
-  if (fin != nullptr) {
-    load_rows<ROWS>(s.opd1, s.opd2, fin, row0, B, k, i);
-    mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k, s.opd1, s.opd2, k,
-                         a1, a2, false, k, i);
-  } else {
-    mont_mul<ROWS, WIDE>(s, ch, e1q, e2q, a1, a2, k,
-                         ic1 + I_ONE * k, ic2 + I_ONE * k, 0,
-                         a1, a2, false, k, i);
-  }
-  store_rows<ROWS>(out, s, row0, B, k, i);
+  if (fin != nullptr)
+    load_rows<R>(cx, s.opd1, s.opd2, fin, row0, B);
+  else
+    fill_rows<R>(cx, s.opd1, s.opd2, ic1 + I_ONE * k, ic2 + I_ONE * k);
+  mont_mul<R, WIDE>(s, cx, a1, a2, s.opd1, s.opd2, a1, a2, false);
+  store_rows<R>(cx, out, a1, a2, row0, B);
 }
 
-template <bool WIDE, int MAXT, int MINB>
-int launch_sliding(const void* x, const void* fin, const void* sched,
-                   int n_steps, const void* ic1, const void* ic2,
-                   const void* f1, const void* f2, const void* e1q,
-                   const void* e2q, void* tbl, void* out, int B, int k,
-                   int T, void* stream) {
-  return launch(rns2_sliding_kernel<WIDE, MAXT, MINB>, (B + ROWS - 1) / ROWS,
-                k, smem_bytes<ROWS>(k), stream,
-                (const int*)x, (const int*)fin, (const int*)sched, n_steps,
-                (const int*)ic1, (const int*)ic2, (const float*)f1,
-                (const float*)f2, (const int*)e1q, (const int*)e2q,
-                (int16_t*)tbl, (int*)out, B, k, T);
+// One instantiation of the kernel with what its launch needs.
+struct Launch {
+  const void* fn;   // null: the tile does not fit k
+  int threads;
+  size_t smem;
+};
+
+template <int R, bool WIDE, int MAXT>
+Launch launch_of(int k) {
+  return {(const void*)rns2_sliding_kernel<R, WIDE, MAXT>,
+          block_threads(k, MAXT), smem_bytes<R>(k)};
+}
+
+// The instantiation for tiles of `rows` rows (8, 16 or 32; 32 only at
+// k <= K_NARROW) at k channels per base.
+Launch launch_for(int rows, int k) {
+  const bool wide = k >= WIDE_K;
+  if (rows == 32 && k <= K_NARROW && smem_bytes<32>(k) <= SMEM_MAX)
+    return launch_of<32, false, 640>(k);
+  if (rows == 16 && smem_bytes<16>(k) <= SMEM_MAX) {
+    if (!wide) return launch_of<16, false, K_MAX>(k);
+    return k <= WIDE_K ? launch_of<16, true, WIDE_K>(k)
+                       : launch_of<16, true, K_MAX>(k);
+  }
+  if (rows == 8 && smem_bytes<8>(k) <= SMEM_MAX)
+    return wide ? launch_of<8, true, K_MAX>(k) : launch_of<8, false, K_MAX>(k);
+  return {nullptr, 0, 0};
+}
+
+cudaError_t allow_smem(const Launch& l) {
+  return cudaFuncSetAttribute(
+      l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+}
+
+// Rows that one wave of `rows`-row blocks holds on the current device:
+// SMs x blocks an SM keeps resident x rows (0 if the tile does not fit
+// k); a negative cudaError_t if a query failed.
+int wave_rows(int rows, int k) {
+  const Launch l = launch_for(rows, k);
+  if (l.fn == nullptr) return 0;
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem(l);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.fn,
+                                                        l.threads, l.smem);
+  return err == cudaSuccess ? sms * per_sm * rows : -(int)err;
 }
 
 }  // namespace
 
-extern "C" int rns2_sliding_rows() { return ROWS; }
+// Tile rows for a batch of B rows at k channels per base on the current
+// device (the rule of the header note); a negative cudaError_t if a
+// device query failed.
+extern "C" int rns2_sliding_rows(int B, int k) {
+  if (k > K_NARROW)
+    return launch_for(16, k).fn != nullptr && (B + 15) / 16 >= MIN_BLOCKS
+               ? 16 : 8;
+  const int tiles[3] = {8, 16, 32};
+  int best = 0, best_cap = 0;
+  for (int rows : tiles) {
+    const int cap = wave_rows(rows, k);
+    if (cap < 0) return cap;
+    if (cap == 0) continue;
+    // fewest rows to spare in one wave that holds B (the larger tile on
+    // a tie); if no wave holds B, the most rows per wave
+    const bool holds = cap >= B, best_holds = best_cap >= B;
+    if (best == 0 || (holds ? !best_holds || cap <= best_cap
+                            : !best_holds && cap >= best_cap)) {
+      best = rows;
+      best_cap = cap;
+    }
+  }
+  return best;
+}
 
-// Launch on `stream`; returns the cudaError_t of the attribute call or
-// of the launch (0 on success).  fin may be null (exit multiply by 1).
-// k must be a multiple of 64 up to K_MAX (the wrapper checks).
+// Launch on `stream` with tiles of `rows` rows (8, 16 or 32; 32 only at
+// k <= 320); returns the cudaError_t of the attribute call or of the
+// launch (0 on success; cudaErrorInvalidValue for a tile that does not
+// fit k).  fin may be null (exit multiply by 1).  k must be a multiple of
+// 64 up to K_MAX (the wrapper checks).
 extern "C" int rns2_sliding_launch(const void* x, const void* fin,
                                    const void* sched, int n_steps,
                                    const void* ic1, const void* ic2,
                                    const void* f1, const void* f2,
-                                   const void* e1q, const void* e2q,
+                                   const void* e1p, const void* e2p,
                                    void* tbl, void* out, int B, int k,
-                                   int window, void* stream) {
-  const int T = 1 << (window - 1);
-#define RNS2_LAUNCH(WIDE, MAXT, MINB)                                        \
-  launch_sliding<WIDE, MAXT, MINB>(x, fin, sched, n_steps, ic1, ic2, f1, f2, \
-                                   e1q, e2q, tbl, out, B, k, T, stream)
-  if (k <= K_NARROW) return RNS2_LAUNCH(false, K_NARROW, 2);
-  if (k < WIDE_K) return RNS2_LAUNCH(false, K_MAX, 1);
-  return RNS2_LAUNCH(true, K_MAX, 1);
-#undef RNS2_LAUNCH
+                                   int window, int rows, void* stream) {
+  const Launch l = launch_for(rows, k);
+  if (l.fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(l);
+  if (err != cudaSuccess) return (int)err;
+  int T = 1 << (window - 1);
+  // in the order of rns2_sliding_kernel's parameters
+  void* args[] = {&x, &fin, &sched, &n_steps, &ic1, &ic2, &f1, &f2, &e1p,
+                  &e2p, &tbl, &out, &B, &k, &T};
+  return (int)cudaLaunchKernel(l.fn, dim3((B + rows - 1) / rows),
+                               dim3(l.threads), args, l.smem,
+                               (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 """Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu), B2
 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
 (csrc/limb_modexp.cu) and what surrounds them: the wrappers' checks, the
-__dp4a matrix packing, the build hash and the launch counters.  This
+__dp4a and tensor-core matrix packings, the build hash, the launch
+counters and the entry points' default device.  This
 file imports no JAX, so its GPU tests also run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -71,6 +72,81 @@ def test_pack_dp4a_layout():
     assert np.array_equal(acc, lhs @ e)
 
 
+def _mma_emulate(packed, lhs, k):
+    """Kernel B1's base extension as rns2_mont_mma.cuh runs it, in numpy:
+    for channel group cg and 64-digit slice s, lane (g, t) takes its A
+    fragments (lo and hi, k32 steps u = 0, 1) as 16 bytes of ``packed``
+    and its B fragments as bytes 64 s + 16 t .. + 15 of digit row 8 n + g;
+    mma.m16n8k32 multiplies fragment row m, column kk of A with row kk,
+    column n of B; the lane's sums (row m = g + 8 (j >> 1), column
+    n = 2t + (j & 1)) are the lo / hi columns of channel 16 cg + m of
+    batch row 8 n + 2t + (j & 1)."""
+    R = lhs.shape[0]
+    G, S2 = k // 16, k // 32
+    P = np.zeros((R, 2 * k), np.int64)
+    pk = packed.reshape(G, S2, 2, 2, 32, 16).astype(np.int64)
+    for nt in range(R // 8):
+        rows = lhs[8 * nt:8 * nt + 8].astype(np.int64)
+        acc = np.zeros((G, 2, 32, 4), np.int64)       # [cg, h, lane, j]
+        for s in range(S2):
+            for u in range(2):
+                A = np.zeros((G, 2, 16, 32), np.int64)    # [cg, h, m, kk]
+                Bm = np.zeros((32, 8), np.int64)          # [kk, n]
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for r in range(4):
+                        for b in range(4):
+                            A[:, :, g + 8 * (r & 1), 16 * (r >> 1) + 4 * t + b] \
+                                = pk[:, s, u, :, lane, 4 * r + b]
+                    for j in range(2):
+                        for b in range(4):
+                            Bm[16 * j + 4 * t + b, g] = rows[
+                                g, 64 * s + 16 * t + 8 * u + 4 * j + b]
+                D = A @ Bm                                # [cg, h, m, n]
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for j in range(4):
+                        acc[:, :, lane, j] += D[:, :, g + 8 * (j >> 1),
+                                                2 * t + (j & 1)]
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for j in range(4):
+                ch = 16 * np.arange(G) + g + 8 * (j >> 1)
+                row = 8 * nt + 2 * t + (j & 1)
+                P[row, ch] = acc[:, 0, lane, j]
+                P[row, k + ch] = acc[:, 1, lane, j]
+    return P
+
+
+@pytest.mark.parametrize("k", [64, 320])
+def test_pack_mma_layout(k):
+    """Kernel B1's tensor-core packing: unpacking gives E back, and the
+    fragment products over the packed words (numpy emulation of the
+    kernel's indexing) equal the int8 product lhs @ E (rns2._dot_i8)."""
+    from paillier_tpu_torch.bigint.limbmm import _dot_i8
+    rng = np.random.default_rng(k)
+    C = 2 * k
+    e = torch.as_tensor(rng.integers(-128, 128, size=(C, C)), dtype=torch.int8)
+    packed = cuda_build.pack_mma(e)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert tuple(packed.shape) == (k // 16, k // 32, 2, 2, 32, 16)
+    # unpacking: (cg, s, u, h, g, t, j, i, b) back to rows (s, t, u, j, b)
+    # and columns (h, cg, i, g)
+    unpacked = packed.reshape(k // 16, k // 32, 2, 2, 8, 4, 2, 2, 4).permute(
+        1, 5, 2, 6, 8, 3, 0, 7, 4).reshape(C, C)
+    assert torch.equal(unpacked, e)
+    # one fragment checked by hand: channel group 1, slice 0, step u = 1,
+    # hi columns, lane (g, t) = (2, 3), register 3 (j = 1, i = 1), byte 2
+    assert packed[1, 0, 1, 1, 4 * 2 + 3, 4 * 3 + 2] == \
+        e[16 * 3 + 8 * 1 + 4 * 1 + 2, k + 16 * 1 + 8 * 1 + 2]
+    lhs = torch.as_tensor(rng.integers(-128, 128, size=(16, C)),
+                          dtype=torch.int8)
+    want = _dot_i8(lhs, e).numpy()
+    assert np.array_equal(want, lhs.numpy().astype(np.int64)
+                          @ e.numpy().astype(np.int64))
+    assert np.array_equal(_mma_emulate(packed.numpy(), lhs.numpy(), k), want)
+
+
 def test_wrapper_checks(eng256_cpu):
     ctx = eng256_cpu.ctx
     k = ctx.k
@@ -109,6 +185,25 @@ def test_cpu_tensor_takes_plain_version(eng256_cpu):
     assert sk.rns2_pow_sliding_b1.launches == before
     assert torch.equal(got, sk.rns2_pow_sliding_plain(eng.ctx, x, sched, 6))
     assert eng.decode(got) == [pow(v, 1000003, n) for v in (2, 3, n - 1)]
+
+
+def test_cpu_tensor_with_fin_takes_plain_version(eng256_cpu):
+    """B1's wrapper on CPU tensors with fin, -2 skip steps and a [C]
+    input: the plain ladder, no launch, x^e * fin mod N."""
+    eng = eng256_cpu
+    n = eng.spec.N
+    xs, fs = [5, n - 2, 7], [3, 1, n - 1]
+    x, fin = eng.encode(xs), eng.encode(fs)
+    sched = list(tr.sliding_window_schedule(65537, 6)) + [-2, -2]
+    before = sk.rns2_pow_sliding_b1.launches
+    got = sk.rns2_pow_sliding_b1(eng.ctx, x, sched, 6, fin=fin)
+    one = sk.rns2_pow_sliding_b1(eng.ctx, x[1], sched, 6, fin=fin[1])
+    assert sk.rns2_pow_sliding_b1.launches == before
+    assert torch.equal(got, sk.rns2_pow_sliding_plain(eng.ctx, x, sched, 6,
+                                                      fin=fin))
+    assert eng.decode(got) == [pow(v, 65537, n) * f % n
+                               for v, f in zip(xs, fs)]
+    assert torch.equal(one, got[1])
 
 
 def test_b2_wrapper_checks(eng256_cpu):
@@ -166,9 +261,12 @@ def test_b2_cpu_tensor_takes_plain_version(eng256_cpu, per_row):
 def test_build_hash_covers_included_headers(tmp_path):
     """An edit of a header that a kernel source includes changes the
     build's name, so a stale library is never loaded."""
-    for name in ("rns2_sliding.cu", "rns2_modexp.cu", "rns2_fixed_base.cu"):
+    for name in ("rns2_modexp.cu", "rns2_fixed_base.cu"):
         files = cuda_build.source_files(cuda_build.CSRC / name)
         assert [f.name for f in files] == [name, "rns2_mont.cuh"]
+    assert [f.name for f in cuda_build.source_files(
+        cuda_build.CSRC / "rns2_sliding.cu")] == [
+        "rns2_sliding.cu", "rns2_mont_mma.cuh", "rns2_mont.cuh"]
     assert [f.name for f in cuda_build.source_files(
         cuda_build.CSRC / "limb_modexp.cu")] == ["limb_modexp.cu"]
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
@@ -236,28 +334,77 @@ def test_b4_wrapper_constants_and_cpu_path():
         mk.mont_pow_b4(ctx, x.to("meta"), digits, 4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bits,rows", [(256, 13), (2048, 9)])
-def test_kernel_b1_matches_plain_on_cuda(cuda_device, bits, rows):
-    """Kernel B1 against the plain ladder on the same CUDA inputs (k = 64
-    and k = 192): bit-identical, with fin and -2 skip steps, a ragged
-    last tile, and equal to Python's pow."""
-    rng = random.Random(bits)
-    n = _odd(rng, bits)
-    eng = tr.Rns2Engine(n, device=cuda_device)
+def _b1_against_plain(eng, rng, rows, e_bits, fin, tile):
+    """Kernel B1 against the plain ladder on ``rows`` rows, whose tile the
+    launcher's rule must pick as ``tile`` (row counts chosen for an H100's
+    132 SMs): bit-identical, one launch, and (on up to 65 rows) equal to
+    Python's pow."""
+    assert sk.load().rns2_sliding_rows(rows, eng.spec.k) == tile, \
+        "the row counts are chosen for an H100 (132 SMs)"
+    n = eng.spec.N
     xs = [rng.randrange(n) for _ in range(rows)]
-    fs = [rng.randrange(n) for _ in range(rows)]
-    x, fin = eng.encode(xs), eng.encode(fs)
-    e = rng.getrandbits(bits // 2) | (1 << (bits // 2 - 1))
+    fs = [rng.randrange(n) for _ in range(rows)] if fin else [1] * rows
+    x = eng.encode(xs)
+    f = eng.encode(fs) if fin else None
+    e = rng.getrandbits(e_bits) | (1 << (e_bits - 1))
     sched = list(tr.sliding_window_schedule(e, 6)) + [-2, -2]
+    want = tr.rns2_pow_sliding_plain(eng.ctx, x, sched, 6, fin=f)
     before = sk.rns2_pow_sliding_b1.launches
-    got = sk.rns2_pow_sliding_b1(eng.ctx, x, sched, 6, fin=fin)
-    want = tr.rns2_pow_sliding_plain(eng.ctx, x, sched, 6, fin=fin)
+    got = sk.rns2_pow_sliding_b1(eng.ctx, x, sched, 6, fin=f)
     assert sk.rns2_pow_sliding_b1.launches == before + 1
-    assert torch.equal(got, want)
-    assert eng.decode(got) == [pow(v, e, n) * f % n for v, f in zip(xs, fs)]
+    assert torch.equal(got, want), (rows, tile, fin)
+    m = min(rows, 65)              # Python's pow on the first rows only
+    assert eng.decode(want[:m]) == [pow(v, e, n) * w % n
+                                    for v, w in zip(xs[:m], fs[:m])]
+    return eng, x, xs, sched, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin", [True, False])
+@pytest.mark.parametrize("bits,rows,tile", [
+    (256, 13, 8), (2048, 9, 8), (256, 1, 8), (256, 33, 8), (2048, 31, 8),
+    (2048, 65, 8), (4096, 33, 8), (4096, 1063, 16), (4096, 2143, 32),
+    (2048, 2143, 32)])
+def test_kernel_b1_matches_plain_on_cuda(cuda_device, bits, rows, tile, fin):
+    """Kernel B1 against the plain ladder on the same CUDA inputs (k = 64,
+    192 and 320) with tiles of 8, 16 and 32 rows, each picked by the
+    launcher's rule, on row counts that are not a multiple of a tile:
+    bit-identical, with and without fin, with -2 skip steps, and equal to
+    Python's pow."""
+    rng = random.Random(bits + rows)
+    eng = tr.Rns2Engine(_odd(rng, bits), device=cuda_device)
+    assert eng.spec.k == {256: 64, 2048: 192, 4096: 320}[bits]
+    eng, x, xs, sched, e = _b1_against_plain(
+        eng, rng, rows, min(bits // 2, 512), fin, tile)
     one = sk.rns2_pow_sliding_b1(eng.ctx, x[0], sched, 6)    # [C] input
-    assert eng.decode(one[None]) == [pow(xs[0], e, n)]
+    assert eng.decode(one[None]) == [pow(xs[0], e, eng.spec.N)]
+
+
+def test_entry_points_default_to_the_card():
+    """Every entry point of the port runs on the card unless the caller
+    asks for the CPU."""
+    import inspect
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch.core import decrypt as cdec
+    from paillier_tpu_torch.core import keygen as ckg
+    from paillier_tpu_torch.core.keys import PublicKey
+    for fn in (pt.Encryptor, pt.nested_encrypt, pt.Decryptor,
+               pt.nested_decrypt, cdec.decrypt_nested_layer, PublicKey.device,
+               ckg.keygen, ckg.device_batched_prime):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_encryptor_without_cuda_raises():
+    """On a machine without CUDA, Encryptor(pk) raises: it does not go on
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    import paillier_tpu_torch as pt
+    _, pk = pt.keygen(128, random.Random(12), device_primes=False,
+                      device="cpu")
+    with pytest.raises((AssertionError, RuntimeError)):
+        pt.Encryptor(pk)
+    assert pk.device().device.type == "cuda"
 
 
 @pytest.mark.cuda
@@ -295,26 +442,23 @@ def test_dot_i8_on_cuda(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,rows", [(4600, 11), (6144, 9), (8192, 5)])
-def test_kernel_b1_wide_matches_plain_on_cuda(cuda_device, bits, rows):
+@pytest.mark.parametrize("fin", [True, False])
+@pytest.mark.parametrize("bits,rows,tile", [
+    (4600, 11, 8), (6144, 9, 8), (8192, 5, 8), (6144, 33, 8), (8192, 65, 8),
+    (7168, 9, 8), (7680, 31, 8), (4600, 1039, 16), (6144, 1039, 16),
+    (8192, 1039, 16)])
+def test_kernel_b1_wide_matches_plain_on_cuda(cuda_device, bits, rows, tile,
+                                              fin):
     """Kernel B1 on wide contexts: k = 384 (no pre-reduction), k = 512 (n^3
-    of a 2048-bit key) and k = 704 (n^2 of a 4096-bit key), with fin and a
-    ragged last tile: bit-identical to the plain ladder and to pow."""
-    rng = random.Random(bits)
-    n = _odd(rng, bits)
-    eng = tr.Rns2Engine(n, device=cuda_device)
-    assert eng.spec.k == {4600: 384, 6144: 512, 8192: 704}[bits]
-    xs = [rng.randrange(n) for _ in range(rows)]
-    fs = [rng.randrange(n) for _ in range(rows)]
-    x, fin = eng.encode(xs), eng.encode(fs)
-    e = rng.getrandbits(96) | (1 << 95)
-    sched = tr.sliding_window_schedule(e, 6)
-    before = sk.rns2_pow_sliding_b1.launches
-    got = sk.rns2_pow_sliding_b1(eng.ctx, x, sched, 6, fin=fin)
-    want = tr.rns2_pow_sliding_plain(eng.ctx, x, sched, 6, fin=fin)
-    assert sk.rns2_pow_sliding_b1.launches == before + 1
-    assert torch.equal(got, want)
-    assert eng.decode(got) == [pow(v, e, n) * f % n for v, f in zip(xs, fs)]
+    of a 2048-bit key), k = 576 and 640, and k = 704 (n^2 of a 4096-bit
+    key), tiles of 8 and 16 rows picked by the launcher's rule, with and
+    without fin, ragged last tiles: bit-identical to the plain ladder and
+    to pow."""
+    rng = random.Random(bits + rows)
+    eng = tr.Rns2Engine(_odd(rng, bits), device=cuda_device)
+    assert eng.spec.k == {4600: 384, 6144: 512, 7168: 576, 7680: 640,
+                          8192: 704}[bits]
+    _b1_against_plain(eng, rng, rows, 96, fin, tile)
 
 
 @pytest.mark.cuda
