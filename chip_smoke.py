@@ -14,7 +14,7 @@ non-zero):
                 ptxas' register and spill report of every instantiation;
                 counts the IMMA (int8 tensor-core) and IDP4A instructions
                 in the SASS of B1-B3 (cuobjdump -sass) and fails unless B1
-                has IMMA and no IDP4A (B2 and B3 keep IDP4A).
+                and B2 have IMMA and no IDP4A and B3 keeps IDP4A.
   3. kernel  -- each kernel against its plain torch version on the same
                 CUDA inputs: residues must be bit-identical (tolerance:
                 exact) and a few rows must equal Python's pow.
@@ -31,15 +31,19 @@ non-zero):
                 B2: shared and per-row digits at k = 64; per-row 2048-bit
                 exponents on 4096 rows at k = 320 (const_mult); 1024 rows
                 at k = 512 with the 1024 digits of level-1 ciphertexts
-                (nested_add).
+                (nested_add); each main shape prints its tile rows and us
+                per multiply.
                 B3: k = 64 with and without fin; the main path's shapes,
                 4096 rows at k = 320 (h1's comb, 256 per-row digits of
                 r < K) and 1024 rows at k = 512 (h2's comb).
                 B4: L = 16 with shared and per-row digits and per-row
                 moduli; L = 128 on 4096 rows against plain over a 32-digit
                 exponent, the full 2048-bit exponent of extract_randomness
-                (64 rows against pow), and 64 per-row 1024-bit moduli with
-                per-row exponents (the Fermat batch).
+                on 4096 and on 1024 rows (64 and 16 rows against pow), and
+                64 per-row 1024-bit moduli with per-row exponents (the
+                Fermat batch: 32 digits against plain, all 256 against
+                pow); each prints its lanes per row and us per Montgomery
+                product.
                 Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
@@ -122,9 +126,10 @@ def ptxas_report(log: str) -> list[str]:
         if m:
             t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E", m.group(1))
             r = re.search(r"ILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
+            w = re.search(r"limb_modexp_kernelILi(\d+)EE", m.group(1))
             name = (f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t
                     else f"<rows={r.group(1)},wide={r.group(2)},{r.group(3)}>"
-                    if r else m.group(1))
+                    if r else f"<words={w.group(1)}>" if w else m.group(1))
         elif "registers" in ln or "spill" in ln:
             out.append(f"{name} {ln.split(':', 1)[-1].strip()}")
     return out
@@ -199,12 +204,14 @@ def main() -> None:
                       len(re.findall(r"\bIDP\.?4A\b", code)))
     phase("build", "SASS instructions (IMMA, IDP4A): " + ", ".join(
         f"{name} {v}" for name, v in sass.items()))
-    if sass["B1"][0] == 0 or sass["B1"][1] != 0:
-        fail(f"kernel B1's SASS has {sass['B1'][0]} IMMA and {sass['B1'][1]} "
-             f"IDP4A: its products are not on the int8 tensor cores")
-    if sass["B2"][1] == 0 or sass["B3"][1] == 0:
-        fail("no IDP4A found in the SASS of B2 / B3, which use __dp4a: the "
-             "instruction count does not see them")
+    for name in ("B1", "B2"):
+        if sass[name][0] == 0 or sass[name][1] != 0:
+            fail(f"kernel {name}'s SASS has {sass[name][0]} IMMA and "
+                 f"{sass[name][1]} IDP4A: its products are not on the int8 "
+                 f"tensor cores")
+    if sass["B3"][1] == 0:
+        fail("no IDP4A found in the SASS of B3, which uses __dp4a: the "
+             "instruction count does not see it")
 
     # -- 3. kernel vs plain ------------------------------------------------
     stats = {kname: {"err": 0, "n": 0, "times": []} for kname in mods}
@@ -437,6 +444,15 @@ def main() -> None:
     b1_other_fin(eng_w, False)
     del eng_w, x, fin
 
+    b2_lib = mx_mod.load()
+
+    def b2_tile(eng, rows, nd, ms):
+        """Tile rows and us per Montgomery multiply of a timed B2 shape
+        (window 4: 14 table multiplies, 5 a digit, entry and exit)."""
+        mults = 1 + 14 + 5 * nd + 1
+        return (f"tile {b2_lib.rns2_modexp_rows(rows, eng.spec.k)} rows, "
+                f"{ms * 1e3 / mults:.2f} us per multiply ({mults})")
+
     # B2 at the slice's shapes: per-row 2048-bit exponents at k = 320
     # (const_mult), per-row ciphertext digits at k = 512 (nested_add)
     xs = [rng.randrange(1, pk.n2) for _ in range(BATCH)]
@@ -453,7 +469,8 @@ def main() -> None:
     b2_nd = nd
     phase("kernel", f"B2 k={eng_n2.spec.k}, {BATCH} rows, per-row {nd} "
           f"digits: bit-identical to plain and to pow; kernel "
-          f"{b2_ms:.3f} ms, plain {b2_plain_ms:.3f} ms")
+          f"{b2_ms:.3f} ms, plain {b2_plain_ms:.3f} ms; "
+          f"{b2_tile(eng_n2, BATCH, nd, b2_ms)}")
 
     mrng = random.Random(SEED + 3)
     c1 = Encryptor(pk, device=dev, rng=mrng).encrypt(
@@ -471,7 +488,9 @@ def main() -> None:
     phase("kernel", f"B2 k={eng_n3.spec.k}, {L2_BATCH} rows, per-row "
           f"{dig.shape[-1]} digits of level-1 ciphertexts: bit-identical "
           f"to plain and to pow; kernel {b2w_ms:.3f} ms, plain "
-          f"{b2w_plain_ms:.3f} ms; comparisons B1 {stats['B1']['n']}, "
+          f"{b2w_plain_ms:.3f} ms; "
+          f"{b2_tile(eng_n3, L2_BATCH, dig.shape[-1], b2w_ms)}; "
+          f"comparisons B1 {stats['B1']['n']}, "
           f"B2 {stats['B2']['n']}, max |diff| "
           f"{max(stats['B1']['err'], stats['B2']['err'])} "
           f"({time.perf_counter() - t0:.1f} s)")
@@ -505,8 +524,20 @@ def main() -> None:
     del got
 
     # B4 at L = 128 (mod n): BATCH rows against plain over a 32-digit
-    # exponent; the full exponent of extract_randomness on BATCH rows (64
-    # against pow); 64 per-row 1024-bit moduli with per-row exponents
+    # exponent; the full exponent of extract_randomness on BATCH and on
+    # L2_BATCH rows (64 and 16 against pow); 64 per-row 1024-bit moduli
+    # with per-row exponents
+
+    def b4_shape(L, rows, nd, ms):
+        """Lanes per row and us per Montgomery product of a timed B4 shape
+        (window 4: 16 table products, 5 a digit, the exit)."""
+        prods = 16 + 5 * nd + 1
+        lanes = mk_mod.lanes_per_row(-(-L // 2), rows, torch.cuda.
+                                     get_device_properties(0).
+                                     multi_processor_count)
+        return (f"{lanes} lanes per row, "
+                f"{ms * 1e3 / prods:.2f} us per product ({prods})")
+
     L = dk.L
     ctx_n = dk.mont_ctx_n()
     xs = [rng.randrange(pk.n) for _ in range(BATCH)]
@@ -521,33 +552,54 @@ def main() -> None:
     nd_full = n_digits_for_bits(e_full.bit_length(), 4)
     d_full = torch.as_tensor(exp_digits(e_full, 4, nd_full), device=dev)
     b4(ctx_n, xl[:64], d_full, 4)                                  # warm
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    got = b4(ctx_n, xl, d_full, 4)
-    ev[1].record()
-    torch.cuda.synchronize()
-    b4_full_ms = ev[0].elapsed_time(ev[1])
-    check_limbs(got, xs, [e_full] * 64, [pk.n] * 64, 64, "B4 L=128 full e")
-    stats["B4"]["times"].append({"shape": f"L={L} rows={BATCH} shared "
-                                 f"{nd_full} digits (no plain run)",
-                                 "ms": b4_full_ms, "plain_ms": None})
+    b4_full = {}
+    for rows, n_pow in ((BATCH, 64), (L2_BATCH, 16)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = b4(ctx_n, xl[:rows], d_full, 4)
+        ev[1].record()
+        torch.cuda.synchronize()
+        b4_full[rows] = ev[0].elapsed_time(ev[1])
+        check_limbs(got, xs, [e_full] * n_pow, [pk.n] * n_pow, n_pow,
+                    f"B4 L=128 full e, {rows} rows")
+        stats["B4"]["times"].append({"shape": f"L={L} rows={rows} shared "
+                                     f"{nd_full} digits (no plain run)",
+                                     "ms": b4_full[rows], "plain_ms": None})
     cands = kg_mod.sieve_candidates(KEY_BITS // 2, 64, random.Random(SEED + 7))
     Lh = bhost.limbs_for_bits(KEY_BITS // 2)
     sctx = stack_mont_ctx(cands, Lh, device=dev)
     es = [c - 1 for c in cands]
     xs64 = [rng.randrange(2, c) for c in cands]
     dig = limbs_to_digits(limbs(es, Lh), 4)
-    got, ms, plain_ms = compare(
-        "B4", lambda: b4(sctx, limbs(xs64, Lh), dig, 4),
-        lambda: b4_plain(sctx, limbs(xs64, Lh), dig, 4),
-        f"L={Lh} rows=64 per-row moduli, {dig.shape[-1]} digits", warm=True)
+    xl64 = limbs(xs64, Lh)
+    es32 = [e % (1 << 128) for e in es]          # the last 32 digits
+    got, _, _ = compare("B4", lambda: b4(sctx, xl64, dig[:, -32:], 4),
+                        lambda: b4_plain(sctx, xl64, dig[:, -32:], 4),
+                        f"L={Lh} rows=64 per-row moduli, 32 digits")
+    check_limbs(got, xs64, es32, cands, 64, "B4 per-row moduli, 32 digits")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = b4(sctx, xl64, dig, 4)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
     check_limbs(got, xs64, es, cands, 64, "B4 per-row 1024-bit moduli")
+    stats["B4"]["times"].append({"shape": f"L={Lh} rows=64 per-row moduli, "
+                                 f"{dig.shape[-1]} digits (no plain run)",
+                                 "ms": ms, "plain_ms": None})
     phase("kernel", f"B4 L={L}, {BATCH} rows: 32 digits bit-identical to "
-          f"plain (kernel {b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms); "
-          f"{nd_full} digits (extract_randomness' exponent) {b4_full_ms:.3f} "
-          f"ms, 64 rows equal pow; L={Lh}, 64 per-row moduli and exponents: "
-          f"bit-identical to plain and to pow, kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms ({time.perf_counter() - t0:.1f} s)")
+          f"plain (kernel {b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms; "
+          f"{b4_shape(L, BATCH, 32, b4_ms)})")
+    for rows, ms_r in b4_full.items():
+        phase("kernel", f"B4 L={L}, {rows} rows, {nd_full} digits "
+              f"(extract_randomness' exponent): {ms_r:.3f} ms, "
+              f"{64 if rows == BATCH else 16} rows equal pow; "
+              f"{b4_shape(L, rows, nd_full, ms_r)}")
+    phase("kernel", f"B4 L={Lh}, 64 per-row moduli and per-row digits: "
+          f"32 digits bit-identical to plain and to pow; "
+          f"{dig.shape[-1]} digits {ms:.3f} ms, equal to pow; "
+          f"{b4_shape(Lh, 64, dig.shape[-1], ms)} "
+          f"({time.perf_counter() - t0:.1f} s)")
     del got, xl
 
     launches = {kname: 0 for kname in wrappers}

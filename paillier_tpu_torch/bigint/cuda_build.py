@@ -10,8 +10,8 @@ PyTorch's current stream.  Nothing here runs at import time, and nothing
 falls back: a missing ``nvcc`` or a failed build raises.
 
 Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
-matrix packings, ``__dp4a`` words for B2 and B3 and tensor-core
-fragments for B1, and the checks of a context against an operand).
+matrix packings, tensor-core fragments for B1 and B2 and ``__dp4a``
+words for B3, and the checks of a context against an operand).
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:
 
 def context_pointers(ctx, pack=pack_dp4a) -> tuple:
     """The context as the kernels take it: contiguous ic1, ic2, f1, f2 and
-    the two matrices packed by ``pack`` (:func:`pack_dp4a` for B2 and B3,
-    :func:`pack_mma` for B1; kept alive by the caller)."""
+    the two matrices packed by ``pack`` (:func:`pack_mma` for B1 and B2,
+    :func:`pack_dp4a` for B3; kept alive by the caller)."""
     return (ctx.ic1.contiguous(), ctx.ic2.contiguous(), ctx.f1.contiguous(),
             ctx.f2.contiguous(), pack(ctx.e1g), pack(ctx.e2g))

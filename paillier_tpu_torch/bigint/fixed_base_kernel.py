@@ -3,8 +3,9 @@
 Replaces ``paillier_tpu/bigint/pallas_rns2.py:_fixed_base_kernel``
 (wrapper ``rns2_pow_fixed_base_pallas``).  The kernel is hand-written
 CUDA C++ in ``paillier_tpu_torch/csrc/rns2_fixed_base.cu`` (its header
-note gives the layout and what bounds it; the Montgomery multiply is in
-``csrc/rns2_mont.cuh``, shared with kernels B1 and B2); :mod:`cuda_build`
+note gives the layout and what bounds it; its ``__dp4a`` Montgomery
+multiply is in ``csrc/rns2_mont.cuh``, whose reductions kernels B1 and B2
+share); :mod:`cuda_build`
 builds it with ``nvcc`` for ``sm_90a`` at first use and binds its plain C
 entry point with ``ctypes``; it launches on PyTorch's current stream.
 

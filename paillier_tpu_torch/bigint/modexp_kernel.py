@@ -4,10 +4,11 @@ GPU.
 Replaces ``paillier_tpu/bigint/pallas_rns2.py:_modexp_kernel`` (wrapper
 ``rns2_pow_pallas``).  The kernel is hand-written CUDA C++ in
 ``paillier_tpu_torch/csrc/rns2_modexp.cu`` (its header note gives the
-layout and what bounds it; the Montgomery multiply is in
-``csrc/rns2_mont.cuh``, shared with kernel B1); :mod:`cuda_build` builds
-it with ``nvcc`` for ``sm_90a`` at first use and binds its plain C entry
-point with ``ctypes``; it launches on PyTorch's current stream.
+layout and what bounds it; the Montgomery multiply on int8 tensor cores
+and the tile rule are kernel B1's, in ``csrc/rns2_mont_mma.cuh``);
+:mod:`cuda_build` builds it with ``nvcc`` for ``sm_90a`` at first use and
+binds its plain C entry point with ``ctypes``; it launches on PyTorch's
+current stream.
 
 :func:`rns2_pow_b2` takes a CPU tensor to the plain version,
 :func:`rns2_pow_plain` (re-exported here from :mod:`rns2`), and a CUDA
@@ -40,9 +41,9 @@ def load():
     lib, build_log = cuda_build.build(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rns2_modexp_launch.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp,
-                                       vp, vp, vp, ci, ci, ci, vp]
+                                       vp, vp, vp, ci, ci, ci, ci, vp]
     lib.rns2_modexp_launch.restype = ci
-    lib.rns2_modexp_rows.argtypes = []
+    lib.rns2_modexp_rows.argtypes = [ci, ci]
     lib.rns2_modexp_rows.restype = ci
     _lib = lib
     return lib
@@ -74,8 +75,10 @@ def rns2_pow_b2(ctx: Rns2Context, x: torch.Tensor, digits,
     x: int32 [B, C] (or [C]) standard residues; digits: int32 [D] shared
     or [B, D] per row, MSB-first base-2^window.  Returns canonical
     residues of a value < lambda*N, bit-identical to
-    :func:`rns2_pow_plain`.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel and adds one to ``rns2_pow_b2.launches``.
+    :func:`rns2_pow_plain`.  The launcher picks the kernel's tile rows
+    (``rns2_modexp_rows``, B1's rule).  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel and adds one to
+    ``rns2_pow_b2.launches``.
     """
     if x.device.type == "cpu":
         return rns2_pow_plain(ctx, x, digits, window)
@@ -91,24 +94,28 @@ def rns2_pow_b2(ctx: Rns2Context, x: torch.Tensor, digits,
     _check_digits(digits, B, window)
     digits = digits.to(torch.int32)
     lib = load()
-    rows = lib.rns2_modexp_rows()
-    Bp = -(-B // rows) * rows
     per_row = digits.dim() == 2
     D = digits.shape[-1]
-    if per_row:            # pad rows read table entry 0 and are not stored
-        digits = torch.nn.functional.pad(digits, (0, 0, 0, Bp - B))
-    digits = digits.contiguous()
-    tbl = torch.empty((Bp, 1 << window, C), dtype=torch.int16,
-                      device=x.device)
-    out = torch.empty_like(x)
-    ic1, ic2, f1, f2, e1q, e2q = cuda_build.context_pointers(ctx)
+    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(
+        ctx, cuda_build.pack_mma)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
+        rows = lib.rns2_modexp_rows(B, ctx.k)
+        if rows <= 0:
+            raise RuntimeError(f"kernel B2's tile rule failed: cudaError "
+                               f"{-rows}")
+        Bp = -(-B // rows) * rows
+        if per_row:        # pad rows read table entry 0 and are not stored
+            digits = torch.nn.functional.pad(digits, (0, 0, 0, Bp - B))
+        digits = digits.contiguous()
+        tbl = torch.empty((Bp, 1 << window, C), dtype=torch.int16,
+                          device=x.device)
+        out = torch.empty_like(x)
         err = lib.rns2_modexp_launch(
             x.data_ptr(), digits.data_ptr(), D, int(per_row),
             ic1.data_ptr(), ic2.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-            e1q.data_ptr(), e2q.data_ptr(), tbl.data_ptr(), out.data_ptr(),
-            B, ctx.k, window, stream)
+            e1p.data_ptr(), e2p.data_ptr(), tbl.data_ptr(), out.data_ptr(),
+            B, ctx.k, window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B2 launch failed: cudaError {err}")
     rns2_pow_b2.launches += 1

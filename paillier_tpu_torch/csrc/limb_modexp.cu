@@ -12,174 +12,315 @@
 //   acc = 1_M; per digit d: w squarings, then acc * table[d], d = 0
 //   included; exit: acc * 1.
 // Every product is a canonical Montgomery product, so the output equals
-// the plain version's (and Python's pow) whatever R is; R = 2^(32 nw)
-// with nw = L / 2 words is the JAX package's R for even L (the wrapper
-// pads an odd L with a zero limb and rebuilds the constants).
+// the plain version's (and Python's pow) whatever R is: R = 2^(32 nw)
+// with nw = TPI * W words, the wrapper padding n with zero words and
+// rebuilding R^2 mod n for that R.
 //
-// Arithmetic: 32-bit words, Montgomery by the fused CIOS step (Koc et
-// al.): for each word b_i, one pass over j forms t_j + a_j b_i + c1 and
-// (that + m n_j + c2) with m = (t_0 + a_0 b_i) * (-n^-1) mod 2^32, two
-// 64-bit carry chains interleaved, the result shifted down one word;
-// then one conditional subtract.  t stays below 2n, so it needs nw + 1
-// words.  2 nw^2 + nw 32x32->64 multiply-adds per product (8,256 at
-// 2048 bits).
+// Layout: a group of TPI lanes of one warp (TPI a power of two, 4..32,
+// chosen by the wrapper from the batch: mont_kernel.lanes_per_row) serves
+// a row; lane l holds words l W .. l W + W - 1 of the operands, the
+// accumulator and n in registers.  The 2^w-entry power table lies in
+// shared memory, [row of the block][entry][word], so a lane reads its own
+// W words of an entry contiguously (and only words it wrote: no barrier
+// anywhere); rows with per-row digits read different entries.
 //
-// Layout: one thread per row (the simplest layout that is right).  A
-// block of RB <= 32 threads (RB chosen by the wrapper to fit shared
-// memory) keeps every word of its rows in shared memory, laid out
-// [word][RB] so that the threads of a warp touch 32 consecutive banks
-// whatever their digits: the 2^w-entry table, the accumulator, the
-// product t, one operand slot and the modulus, (2^w + 4) nw + 1 words per
-// row (5,124 B at nw = 64, w = 4: 164 KB for 32 rows).  Nothing goes
-// through device memory but the inputs and the output.
+// The Montgomery product is CIOS by words of b (Koc et al.), spread over
+// the group.  For each word b_i:
+//   b_i is broadcast from its owner lane (__shfl_sync over the group);
+//   m_i = (t_0 + a_0 b_i) (-n^-1) mod 2^32 is formed from the group's
+//     word 0, which is exact (no carry is ever pending there), and
+//     broadcast;
+//   every lane adds a_j b_i + m_i n_j into its words (two 32-bit carry
+//     chains) and keeps its carry-out instead of passing it along the
+//     group; the one-word shift brings the word 0 of the lane above in on
+//     top, plus the lane's own carry-out, and the carry of that sum (at
+//     most 2) is the lane above's pending carry, which that lane forms
+//     itself from the carry-out it receives (one shuffle each way, in
+//     parallel).
+// After the nw steps the pending carries are resolved once: each lane
+// adds its own, then the carries between lanes come from a carry-lookahead
+// over the group (generate and propagate bits by __ballot_sync, the
+// carries of the sum (G|P) + G).  The conditional subtract of n takes its
+// borrows the same way.  t < a + n < 2R throughout, so one bit above the
+// top word (kept by the group's top lane) holds it.
 //
-// What bounds it on an H100: the 32x32->64 multiply-adds on the INT32
-// pipe (64 lanes per SM; an IMAD.WIDE takes two issues, so at most 32
-// such multiply-adds per clock per SM).  One thread per row gives a batch
-// of 4096 rows about one warp per SM, so the kernel is bound by the
-// latency of its carry chains rather than by that rate; the two chains
-// of the fused step give each thread two independent multiply-adds per
-// word.  Several threads per row (a warp per row with carry-save words)
-// are later work.
+// What bounds it on an H100: the 2 nw^2 + nw 32x32->64 multiply-adds per
+// product on the INT32 pipe (an IMAD.WIDE takes two issues, so at most 32
+// per clock per SM).  One thread per row, as this kernel first was, left
+// about one warp per SM at 4096 rows, bound by the latency of its carry
+// chains; TPI lanes a row give TPI times the warps, and a word step's
+// dependent chain (two multiplies, a shuffle of m_i, W multiply-adds, a
+// shuffle) is W multiply-adds long instead of nw.  Measured on an H100
+// (PERF.md §6): 4096 rows at L = 128 ran fastest with 8 lanes a row
+// (more lanes cost more shuffles than they hide), 1024 rows with 32.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int MAX_RB = 32;       // rows (threads) per block
+constexpr int MAX_THREADS = 256;   // threads (rows x TPI) of a block
 
-// A per-thread vector in the [word][RB] layout: element j at p[j * rb].
-struct Vec {
-  uint32_t* p;
-  int rb;
-  __device__ __forceinline__ uint32_t& operator[](int j) const {
-    return p[j * rb];
-  }
+// A row's group of lanes within its warp.
+struct Group {
+  unsigned mask;   // the group's lanes
+  int tpi;         // lanes in the group
+  int l;           // this lane's index in the group
+  int base;        // warp lane of the group's lane 0
+  bool top;        // l == tpi - 1
 };
 
-// out = a * b * R^-1 mod n, canonical, for a < R, b < n (a < n for the
-// t < 2n bound of every step).  out may alias a or b; t is scratch of
-// nw + 1 words.
-__device__ void mont_mul(Vec a, Vec b, Vec n, uint32_t n0, Vec t, Vec out,
-                         int nw) {
-  for (int j = 0; j <= nw; ++j) t[j] = 0;
-  for (int i = 0; i < nw; ++i) {
-    const uint32_t bi = b[i];
-    uint64_t p = (uint64_t)a[0] * bi + t[0];
-    const uint32_t s0 = (uint32_t)p;
-    uint32_t c1 = (uint32_t)(p >> 32);
-    const uint32_t m = s0 * n0;
-    uint64_t q = (uint64_t)m * n[0] + s0;       // low word is 0
-    uint32_t c2 = (uint32_t)(q >> 32);
-#pragma unroll 4
-    for (int j = 1; j < nw; ++j) {
-      p = (uint64_t)a[j] * bi + t[j] + c1;
-      c1 = (uint32_t)(p >> 32);
-      q = (uint64_t)m * n[j] + (uint32_t)p + c2;
-      c2 = (uint32_t)(q >> 32);
-      t[j - 1] = (uint32_t)q;
+__device__ __forceinline__ uint32_t bcast(const Group& g, uint32_t v,
+                                          int src) {
+  return __shfl_sync(g.mask, v, src, g.tpi);
+}
+
+// Carries into this lane (return) and out of the group's top (cout) of a
+// sum whose lanes generate (gen) or propagate (prop) a carry; gen and
+// prop are never both set in one lane.
+__device__ __forceinline__ uint32_t lookahead(const Group& g, bool gen,
+                                              bool prop, uint32_t& cout) {
+  const uint64_t low = g.tpi == 32 ? 0xffffffffull : (1ull << g.tpi) - 1;
+  const uint64_t G = (__ballot_sync(g.mask, gen) >> g.base) & low;
+  const uint64_t P = (__ballot_sync(g.mask, prop) >> g.base) & low;
+  const uint64_t c = ((G | P) + G) ^ (G | P) ^ G;   // carry into each bit
+  cout = (uint32_t)(c >> g.tpi) & 1u;
+  return (uint32_t)(c >> g.l) & 1u;
+}
+
+// out = a * b * R^-1 mod n, canonical, for a < R and b < n; each array
+// holds this lane's W words.  out may alias a or b.
+template <int W>
+__device__ __forceinline__ void mont_mul(const Group& g,
+                                         const uint32_t (&a)[W],
+                                         const uint32_t (&b)[W],
+                                         const uint32_t (&n)[W], uint32_t n0,
+                                         uint32_t (&out)[W]) {
+  uint32_t t[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) t[w] = 0;
+  uint32_t cy = 0;   // carry pending at this lane's word 0 (lane 0: none)
+  uint32_t tx = 0;   // top lane: the bit above the top word
+  for (int src = 0; src < g.tpi; ++src) {
+#pragma unroll
+    for (int wb = 0; wb < W; ++wb) {
+      const uint32_t bi = bcast(g, b[wb], src);
+      const uint32_t m = bcast(g, (t[0] + a[0] * bi) * n0, 0);
+      uint32_t c1 = cy, c2 = 0, u[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const uint64_t p = (uint64_t)a[w] * bi + t[w] + c1;
+        c1 = (uint32_t)(p >> 32);
+        const uint64_t q = (uint64_t)m * n[w] + (uint32_t)p + c2;
+        c2 = (uint32_t)(q >> 32);
+        u[w] = (uint32_t)q;
+      }
+      // carry-out at this lane's word W, i.e. its top word after the shift
+      const uint64_t co = (uint64_t)c1 + c2;
+      const uint32_t above = __shfl_down_sync(g.mask, u[0], 1, g.tpi);
+      const uint64_t below = __shfl_up_sync(
+          g.mask, (unsigned long long)co, 1, g.tpi);
+#pragma unroll
+      for (int w = 0; w + 1 < W; ++w) t[w] = u[w + 1];
+      const uint64_t s = (uint64_t)(g.top ? tx : above) + co;
+      t[W - 1] = (uint32_t)s;
+      if (g.top) tx = (uint32_t)(s >> 32);
+      // the lane below's top-word sum carries into this lane's word 0
+      cy = g.l == 0 ? 0u : (uint32_t)(((uint64_t)u[0] + below) >> 32);
     }
-    const uint64_t top = (uint64_t)t[nw] + c1 + c2;
-    t[nw - 1] = (uint32_t)top;
-    t[nw] = (uint32_t)(top >> 32);
   }
-  // t < 2n: subtract n once if t >= n
-  uint32_t borrow = 0;
-  for (int j = 0; j < nw; ++j) {
-    const uint64_t d = (uint64_t)t[j] - n[j] - borrow;
-    borrow = (uint32_t)(d >> 32) & 1u;
+  // resolve: this lane's own pending carry, then the carries between lanes
+  uint32_t c = cy;
+  bool ones = true;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t v = (uint64_t)t[w] + c;
+    t[w] = (uint32_t)v;
+    c = (uint32_t)(v >> 32);
+    ones = ones && t[w] == 0xffffffffu;
   }
-  const bool sub = t[nw] != 0 || borrow == 0;
-  borrow = 0;
-  for (int j = 0; j < nw; ++j) {
-    const uint64_t d = (uint64_t)t[j] - (sub ? n[j] : 0u) - borrow;
-    borrow = (uint32_t)(d >> 32) & 1u;
-    out[j] = (uint32_t)d;
+  uint32_t cout;
+  c = lookahead(g, c != 0, ones, cout);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t v = (uint64_t)t[w] + c;
+    t[w] = (uint32_t)v;
+    c = (uint32_t)(v >> 32);
+  }
+  tx += cout;        // only the top lane's tx counts
+  // t < 2n: d = t - n, borrows between lanes by the same lookahead
+  uint32_t d[W], bw = 0;
+  bool zero = true;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t v = (uint64_t)t[w] - n[w] - bw;
+    d[w] = (uint32_t)v;
+    bw = (uint32_t)(v >> 32) & 1u;
+    zero = zero && d[w] == 0;
+  }
+  uint32_t bout;
+  bw = lookahead(g, bw != 0, zero, bout);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint64_t v = (uint64_t)d[w] - bw;
+    d[w] = (uint32_t)v;
+    bw = (uint32_t)(v >> 32) & 1u;
+  }
+  const bool sub = bcast(g, tx, g.tpi - 1) != 0 || bout == 0;
+#pragma unroll
+  for (int w = 0; w < W; ++w) out[w] = sub ? d[w] : t[w];
+}
+
+// this lane's words of a row of 16-bit limbs (int32 [2 nw])
+template <int W>
+__device__ __forceinline__ void load_words(uint32_t (&v)[W], const int* src,
+                                           int l) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int j = l * W + w;
+    v[w] = (uint32_t)__ldg(src + 2 * j) | ((uint32_t)__ldg(src + 2 * j + 1)
+                                            << 16);
   }
 }
 
-// 16-bit limbs (int32 [L]) -> 32-bit words [nw]; limbs past L read 0
-__device__ __forceinline__ void load_words(Vec dst, const int* src, int L,
-                                           int nw) {
-  for (int j = 0; j < nw; ++j) {
-    const uint32_t lo = 2 * j < L ? (uint32_t)src[2 * j] : 0u;
-    const uint32_t hi = 2 * j + 1 < L ? (uint32_t)src[2 * j + 1] : 0u;
-    dst[j] = lo | (hi << 16);
-  }
+// the value 1 (word 0 of lane 0)
+template <int W>
+__device__ __forceinline__ void set_one(uint32_t (&v)[W], int l) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) v[w] = l == 0 && w == 0;
 }
 
-__global__ void __launch_bounds__(MAX_RB)
+template <int W>
+__device__ __forceinline__ void copy_words(uint32_t* dst,
+                                           const uint32_t (&v)[W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) dst[w] = v[w];
+}
+
+template <int W>
+__device__ __forceinline__ void read_words(uint32_t (&v)[W],
+                                           const uint32_t* src) {
+#pragma unroll
+  for (int w = 0; w < W; ++w) v[w] = src[w];
+}
+
+template <int W>
+__global__ void __launch_bounds__(MAX_THREADS)
 limb_modexp_kernel(const int* __restrict__ base,
                    const int* __restrict__ digits, int n_digits, int per_row,
                    const int* __restrict__ nmod, const int* __restrict__ n0,
                    const int* __restrict__ r2, int ctx_per_row,
-                   int* __restrict__ out, int B, int L, int nw, int window) {
+                   int* __restrict__ out, int B, int nw, int window,
+                   int tpi) {
   extern __shared__ uint32_t smem[];
-  const int rb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * rb + tid;
-  if (row >= B) return;                 // no thread reads another's words
+  const int lane = threadIdx.x & 31;
+  Group g;
+  g.tpi = tpi;
+  g.l = lane & (tpi - 1);
+  g.base = lane - g.l;
+  g.mask = (tpi == 32 ? 0xffffffffu : (1u << tpi) - 1u) << g.base;
+  g.top = g.l == tpi - 1;
+  const int grp = threadIdx.x / tpi;           // the block's row
+  const int row = blockIdx.x * (blockDim.x / tpi) + grp;
+  if (row >= B) return;       // a whole group: its shuffles name only it
   const int T = 1 << window;
-  uint32_t* mine = smem + tid;
-  auto vec = [&](int word) { return Vec{mine + (size_t)word * rb, rb}; };
-  const Vec acc = vec(T * nw), t = vec((T + 1) * nw),
-            aux = vec((T + 2) * nw + 1), n = vec((T + 3) * nw + 1);
+  // this lane's words of table entry 0; entry v at tb[v * nw]
+  uint32_t* tb = smem + (size_t)grp * (T * nw + nw % 32) + g.l * W;
+  const int L = 2 * nw;
   const size_t crow = ctx_per_row ? (size_t)row : 0;
-  load_words(n, nmod + crow * L, L, nw);
-  const uint32_t k0 = (uint32_t)n0[crow];
+  uint32_t n[W], acc[W], x[W], aux[W], bm[W];
+  load_words<W>(n, nmod + crow * L, g.l);
+  const uint32_t k0 = (uint32_t)__ldg(n0 + crow);
 
-  // table[1] = base * R^2 * R^-1; table[0] = 1 * R^2 * R^-1 = R mod n
-  load_words(acc, base + (size_t)row * L, L, nw);
-  load_words(aux, r2 + crow * L, L, nw);
-  mont_mul(acc, aux, n, k0, t, vec(nw), nw);
-  for (int j = 0; j < nw; ++j) acc[j] = j == 0;
-  mont_mul(acc, aux, n, k0, t, vec(0), nw);
-  for (int v = 2; v < T; ++v)
-    mont_mul(vec((v - 1) * nw), vec(nw), n, k0, t, vec(v * nw), nw);
+  // table[1] = bm = base * R^2 * R^-1; table[0] = 1 * R^2 * R^-1 = R mod n;
+  // table[v] = table[v-1] * bm
+  load_words<W>(x, base + (size_t)row * L, g.l);
+  load_words<W>(aux, r2 + crow * L, g.l);
+  mont_mul<W>(g, x, aux, n, k0, bm);
+  set_one<W>(x, g.l);
+  mont_mul<W>(g, x, aux, n, k0, acc);          // acc = 1_M from here on
+  copy_words<W>(tb, acc);
+  copy_words<W>(tb + nw, bm);
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = bm[j];
+  for (int v = 2; v < T; ++v) {
+    mont_mul<W>(g, x, bm, n, k0, x);
+    copy_words<W>(tb + v * nw, x);
+  }
 
-  // acc = 1_M
-  for (int j = 0; j < nw; ++j) acc[j] = vec(0)[j];
   const int* dig = per_row ? digits + (size_t)row * n_digits : digits;
   for (int step = 0; step < n_digits; ++step) {
-    for (int s = 0; s < window; ++s) mont_mul(acc, acc, n, k0, t, acc, nw);
-    mont_mul(vec(dig[step] * nw), acc, n, k0, t, acc, nw);
+    const int d = __ldg(dig + step);
+    for (int s = 0; s < window; ++s) mont_mul<W>(g, acc, acc, n, k0, acc);
+    read_words<W>(x, tb + d * nw);
+    mont_mul<W>(g, x, acc, n, k0, acc);
   }
 
   // exit: acc * 1 leaves the Montgomery domain
-  for (int j = 0; j < nw; ++j) aux[j] = j == 0;
-  mont_mul(acc, aux, n, k0, t, acc, nw);
-  int* o = out + (size_t)row * L;
-  for (int l = 0; l < L; ++l) o[l] = (int)((acc[l >> 1] >> (16 * (l & 1))) & 0xFFFFu);
+  set_one<W>(aux, g.l);
+  mont_mul<W>(g, acc, aux, n, k0, acc);
+  int* o = out + (size_t)row * L + 2 * g.l * W;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    o[2 * w] = (int)(acc[w] & 0xFFFFu);
+    o[2 * w + 1] = (int)(acc[w] >> 16);
+  }
+}
+
+template <int W>
+int launch_w(int grid, int threads, size_t smem, void* stream,
+             const void* base, const void* digits, int n_digits, int per_row,
+             const void* nmod, const void* n0, const void* r2,
+             int ctx_per_row, void* out, int B, int nw, int window,
+             int tpi) {
+  cudaError_t err = cudaFuncSetAttribute(
+      limb_modexp_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  limb_modexp_kernel<W><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const int*)base, (const int*)digits, n_digits, per_row,
+      (const int*)nmod, (const int*)n0, (const int*)r2, ctx_per_row,
+      (int*)out, B, nw, window, tpi);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int limb_modexp_max_rows() { return MAX_RB; }
-
-// Shared-memory bytes of one row of a block.
+// Shared-memory bytes of one row of a block: its 2^window-entry table of
+// nw words, padded by nw mod 32 words so that the rows of a warp start on
+// different banks.
 extern "C" int limb_modexp_row_bytes(int nw, int window) {
-  return (int)(((size_t)((1 << window) + 4) * nw + 1) * sizeof(uint32_t));
+  return (int)(((size_t)(1 << window) * nw + nw % 32) * sizeof(uint32_t));
 }
 
-// Launch on `stream` with blocks of `rb` rows; returns the cudaError_t of
-// the attribute call or of the launch (0 on success).  base, out: int32
-// [B, L] 16-bit limbs; digits int32 [D] (per_row 0) or [B, D]; nmod, r2:
-// int32 [L] (ctx_per_row 0) or [B, L]; n0: int32 [1] or [B], the low 32
-// bits of -n^-1 mod R; nw = ceil(L / 2).
+// Launch on `stream` with `tpi` lanes a row (a power of two, 4..32, that
+// divides nw into W = 1, 2, 3, 4 or 8 words a lane) and blocks of `rb`
+// rows (rb * tpi <= MAX_THREADS); returns the cudaError_t of the
+// attribute call or of the launch (0 on success; cudaErrorInvalidValue
+// for a shape the kernel does not take).  base, out: int32 [B, 2 nw]
+// 16-bit limbs; digits int32 [D] (per_row 0) or [B, D]; nmod, r2: int32
+// [2 nw] (ctx_per_row 0) or [B, 2 nw]; n0: int32 [1] or [B], the low 32
+// bits of -n^-1 mod 2^32.
 extern "C" int limb_modexp_launch(const void* base, const void* digits,
                                   int n_digits, int per_row, const void* nmod,
                                   const void* n0, const void* r2,
-                                  int ctx_per_row, void* out, int B, int L,
-                                  int nw, int window, int rb, void* stream) {
+                                  int ctx_per_row, void* out, int B, int nw,
+                                  int window, int tpi, int rb, void* stream) {
+  if (tpi < 4 || tpi > 32 || (tpi & (tpi - 1)) || nw % tpi || rb < 1 ||
+      rb * tpi > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)rb * limb_modexp_row_bytes(nw, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      limb_modexp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  limb_modexp_kernel<<<(B + rb - 1) / rb, rb, smem, (cudaStream_t)stream>>>(
-      (const int*)base, (const int*)digits, n_digits, per_row,
-      (const int*)nmod, (const int*)n0, (const int*)r2, ctx_per_row,
-      (int*)out, B, L, nw, window);
-  return (int)cudaGetLastError();
+  const int grid = (B + rb - 1) / rb;
+#define B4_LAUNCH(W)                                                        \
+  launch_w<W>(grid, rb * tpi, smem, stream, base, digits, n_digits, per_row, \
+              nmod, n0, r2, ctx_per_row, out, B, nw, window, tpi)
+  switch (nw / tpi) {
+    case 1: return B4_LAUNCH(1);
+    case 2: return B4_LAUNCH(2);
+    case 3: return B4_LAUNCH(3);
+    case 4: return B4_LAUNCH(4);
+    case 8: return B4_LAUNCH(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef B4_LAUNCH
 }

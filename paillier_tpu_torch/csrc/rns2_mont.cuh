@@ -1,5 +1,6 @@
-// The Cox-Rower RNS Montgomery multiply shared by the ladder kernels B2
-// (rns2_modexp.cu) and B3 (rns2_fixed_base.cu).
+// The Cox-Rower RNS Montgomery multiply on __dp4a, used by kernel B3
+// (rns2_fixed_base.cu); its reductions and constants also serve the
+// tensor-core multiply of kernels B1 and B2 (rns2_mont_mma.cuh).
 //
 // It is rns2.rns2_mont_mul_pair on a tile of ROWS batch rows, and the
 // arithmetic matches the plain torch version bit for bit:
@@ -264,40 +265,6 @@ __device__ __forceinline__ void store_rows(int* out, const Shared& s,
       out[(size_t)(row0 + r) * C + i] = s.acc1[r * k + i];
       out[(size_t)(row0 + r) * C + k + i] = s.acc2[r * k + i];
     }
-  }
-}
-
-// Power tables live in a global int16 scratch [B', T, 2k] (B' = B
-// rounded up to ROWS).  Lazy residues fit exactly: digit outputs lie in
-// (-m - 820, m + 820), residue outputs in (-m, 2m), and 2m < 2^15.  Each
-// thread only ever reads back the channels it wrote itself.
-template <int ROWS>
-__device__ __forceinline__ void store_tbl(int16_t* tb, const int* a1,
-                                          const int* a2, int d, int T,
-                                          int k, int i) {
-  const int C = 2 * k;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    int16_t* row = tb + ((size_t)r * T + d) * C;
-    row[i] = (int16_t)a1[r * k + i];
-    row[k + i] = (int16_t)a2[r * k + i];
-  }
-}
-
-// Load table entry d[0] (PER_ROW false: one index for the tile) or
-// d[r * ds] (PER_ROW: each row its own) of each row into (o1, o2).
-template <int ROWS, bool PER_ROW>
-__device__ __forceinline__ void load_tbl(int* o1, int* o2, const int16_t* tb,
-                                         const int* d, int ds, int T, int k,
-                                         int i) {
-  const int C = 2 * k;
-  const int d0 = d[0];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int dr = PER_ROW ? d[r * ds] : d0;
-    const int16_t* row = tb + ((size_t)r * T + dr) * C;
-    o1[r * k + i] = row[i];
-    o2[r * k + i] = row[k + i];
   }
 }
 

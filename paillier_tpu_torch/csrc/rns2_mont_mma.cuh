@@ -1,5 +1,6 @@
 // The Cox-Rower RNS Montgomery multiply on int8 tensor cores, used by
-// kernel B1 (rns2_sliding.cu).
+// kernels B1 (rns2_sliding.cu) and B2 (rns2_modexp.cu), and the launch
+// rule both kernels share (end of this file).
 //
 // It is rns2.rns2_mont_mul_pair on a tile of R batch rows (R = 8, 16 or
 // 32), bit for bit: the reductions and rounding rules are those of
@@ -46,6 +47,34 @@
 //
 // Wide specs (WIDE, k >= 512) pre-reduce the hi column sum exactly where
 // rns2._mm_lhs2 / _mm_finish do (see rns2_mont.cuh).
+//
+// Launch rule (tile_rows; the wrappers ask for the tile, size their
+// table scratch by it and pass it back to the launch).  Instantiations:
+//   R = 32  k <= 320 only; __launch_bounds__(640, 1), 2k threads (a warp
+//           per 16-channel group; 20 warps at k = 320); 129,664 bytes of
+//           shared memory at k = 320.
+//   R = 16  __launch_bounds__(704, 1): 2k threads up to k = 320, else k
+//           (a warp per two groups); at k = 512 __launch_bounds__(512, 1),
+//           which gives a thread 128 registers instead of 80 and made B1
+//           9% faster.
+//   R = 8   __launch_bounds__(704, 1).
+// Rule, from every tile timed at 512-8192 rows (k = 192, 320) and
+// 256-4096 rows (k = 512, 704) on an H100 (PERF.md §6,
+// scripts/ab_sliding.py):
+//   k <= 320: a block takes about as long whatever the grid (B1 at
+//     k = 320: ~27 ms at 8 rows, ~34 at 16, ~41 at 32 for e = n), so the
+//     time is the number of waves times a block's time.  A wave of R-row
+//     tiles holds SMs x (blocks an SM keeps resident, from the occupancy
+//     API) x R rows; take the tile whose one wave holds B with the fewest
+//     rows to spare (the larger tile on a tie: at k = 192, two resident
+//     16-row blocks were slower than one 32-row block), and if no wave
+//     holds B the one with the most rows per wave.  On an H100 at
+//     k = 320: 8 rows up to 1056, 16 up to 2112, then 32; at k = 192: 8
+//     up to 2112, then 32.
+//   k > 320: the L2 reads of the matrices bind, so fewer blocks win: the
+//     largest tile whose grid keeps MIN_BLOCKS = 64 blocks (at 1024 rows,
+//     64 blocks of 16 rows beat 128 blocks of 8).
+// B2's block has B1's shared memory and threads, so one rule serves both.
 
 #pragma once
 
@@ -61,6 +90,7 @@ using rns2::I2_U0S;
 using rns2::I_ENTRY;
 using rns2::I_M;
 using rns2::I_ONE;
+using rns2::I_ONEM;
 using rns2::K_MAX;
 using rns2::K_NARROW;
 using rns2::WIDE_K;
@@ -360,6 +390,109 @@ __device__ __forceinline__ void load_tbl(const Ctx& cx, int16_t* o1,
     o1[r * k + c] = row[c];
     o2[r * k + c] = row[k + c];
   });
+}
+
+// ---------------------------------------------------------------------
+// The launch rule shared by B1 and B2.  K is a kernel family: a struct
+// whose `template <int R, bool WIDE, int MAXT> static const void* fn()`
+// returns that instantiation of its kernel.
+
+constexpr int MIN_BLOCKS = 64;   // k > 320: blocks wanted before a larger tile
+constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use
+
+// One instantiation of a kernel with what its launch needs.
+struct Launch {
+  const void* fn;   // null: the tile does not fit k
+  int threads;
+  size_t smem;
+};
+
+template <class K, int R, bool WIDE, int MAXT>
+Launch launch_of(int k) {
+  return {K::template fn<R, WIDE, MAXT>(), block_threads(k, MAXT),
+          smem_bytes<R>(k)};
+}
+
+// The instantiation for tiles of `rows` rows (8, 16 or 32; 32 only at
+// k <= K_NARROW) at k channels per base.
+template <class K>
+Launch launch_for(int rows, int k) {
+  const bool wide = k >= WIDE_K;
+  if (rows == 32 && k <= K_NARROW && smem_bytes<32>(k) <= SMEM_MAX)
+    return launch_of<K, 32, false, 640>(k);
+  if (rows == 16 && smem_bytes<16>(k) <= SMEM_MAX) {
+    if (!wide) return launch_of<K, 16, false, K_MAX>(k);
+    return k <= WIDE_K ? launch_of<K, 16, true, WIDE_K>(k)
+                       : launch_of<K, 16, true, K_MAX>(k);
+  }
+  if (rows == 8 && smem_bytes<8>(k) <= SMEM_MAX)
+    return wide ? launch_of<K, 8, true, K_MAX>(k)
+                : launch_of<K, 8, false, K_MAX>(k);
+  return {nullptr, 0, 0};
+}
+
+inline cudaError_t allow_smem(const Launch& l) {
+  return cudaFuncSetAttribute(
+      l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+}
+
+// Rows that one wave of `rows`-row blocks holds on the current device:
+// SMs x blocks an SM keeps resident x rows (0 if the tile does not fit
+// k); a negative cudaError_t if a query failed.
+template <class K>
+int wave_rows(int rows, int k) {
+  const Launch l = launch_for<K>(rows, k);
+  if (l.fn == nullptr) return 0;
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = allow_smem(l);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, l.fn,
+                                                        l.threads, l.smem);
+  return err == cudaSuccess ? sms * per_sm * rows : -(int)err;
+}
+
+// Tile rows for a batch of B rows at k channels per base on the current
+// device (the rule of the header note); a negative cudaError_t if a
+// device query failed.
+template <class K>
+int tile_rows(int B, int k) {
+  if (k > K_NARROW)
+    return launch_for<K>(16, k).fn != nullptr && (B + 15) / 16 >= MIN_BLOCKS
+               ? 16 : 8;
+  const int tiles[3] = {8, 16, 32};
+  int best = 0, best_cap = 0;
+  for (int rows : tiles) {
+    const int cap = wave_rows<K>(rows, k);
+    if (cap < 0) return cap;
+    if (cap == 0) continue;
+    // fewest rows to spare in one wave that holds B (the larger tile on
+    // a tie); if no wave holds B, the most rows per wave
+    const bool holds = cap >= B, best_holds = best_cap >= B;
+    if (best == 0 || (holds ? !best_holds || cap <= best_cap
+                            : !best_holds && cap >= best_cap)) {
+      best = rows;
+      best_cap = cap;
+    }
+  }
+  return best;
+}
+
+// Launch K with tiles of `rows` rows on B rows; args in the order of the
+// kernel's parameters.  Returns the cudaError_t of the attribute call or
+// of the launch (0 on success; cudaErrorInvalidValue for a tile that
+// does not fit k).
+template <class K>
+int launch_tiles(int rows, int k, int B, void** args, void* stream) {
+  const Launch l = launch_for<K>(rows, k);
+  if (l.fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(l);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaLaunchKernel(l.fn, dim3((B + rows - 1) / rows),
+                               dim3(l.threads), args, l.smem,
+                               (cudaStream_t)stream);
 }
 
 }  // namespace rns2mma

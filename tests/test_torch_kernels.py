@@ -261,12 +261,12 @@ def test_b2_cpu_tensor_takes_plain_version(eng256_cpu, per_row):
 def test_build_hash_covers_included_headers(tmp_path):
     """An edit of a header that a kernel source includes changes the
     build's name, so a stale library is never loaded."""
-    for name in ("rns2_modexp.cu", "rns2_fixed_base.cu"):
-        files = cuda_build.source_files(cuda_build.CSRC / name)
-        assert [f.name for f in files] == [name, "rns2_mont.cuh"]
-    assert [f.name for f in cuda_build.source_files(
-        cuda_build.CSRC / "rns2_sliding.cu")] == [
-        "rns2_sliding.cu", "rns2_mont_mma.cuh", "rns2_mont.cuh"]
+    files = cuda_build.source_files(cuda_build.CSRC / "rns2_fixed_base.cu")
+    assert [f.name for f in files] == ["rns2_fixed_base.cu", "rns2_mont.cuh"]
+    for name in ("rns2_sliding.cu", "rns2_modexp.cu"):
+        assert [f.name for f in cuda_build.source_files(
+            cuda_build.CSRC / name)] == [
+            name, "rns2_mont_mma.cuh", "rns2_mont.cuh"]
     assert [f.name for f in cuda_build.source_files(
         cuda_build.CSRC / "limb_modexp.cu")] == ["limb_modexp.cu"]
     (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
@@ -332,6 +332,176 @@ def test_b4_wrapper_constants_and_cpu_path():
     assert host.limbs_to_ints(got.numpy()) == [pow(v, 65537, n) for v in xs]
     with pytest.raises(ValueError, match="CUDA"):
         mk.mont_pow_b4(ctx, x.to("meta"), digits, 4)
+
+
+def test_b4_launch_shape():
+    """Kernel B4's launch shape: the fewest lanes a row (4 to 32) whose
+    rows give 6 warps an SM, else the most; every lane count leaves a
+    number of words a lane that the kernel takes; the words are padded to
+    a multiple of the lanes and the constants rebuilt for the larger R."""
+    # an H100's 132 SMs: extract_randomness at levels 1 and 2, the
+    # Fermat batch, and the row counts on either side of each change of
+    # the fastest lane count in the sweep of PERF.md §6 (L = 128, 256)
+    assert mk.lanes_per_row(64, 4096, 132) == 8
+    assert mk.lanes_per_row(64, 2048, 132) == 16
+    assert mk.lanes_per_row(64, 1024, 132) == 32
+    assert mk.lanes_per_row(32, 64, 132) == 32
+    assert [mk.lanes_per_row(64, rows, 132) for rows in (1536, 1792, 3072,
+                                                         3584)
+            ] == [32, 16, 16, 8]
+    assert [mk.lanes_per_row(128, rows, 132) for rows in (1024, 2048, 4096)
+            ] == [32, 16, 16]
+    assert [mk.lanes_per_row(nw, 1, 132) for nw in (1, 3, 5, 8, 48, 100)
+            ] == [4, 4, 4, 8, 32, 32]
+    assert [mk.lanes_per_row(nw, 10 ** 6, 132) for nw in (3, 8, 48, 100)
+            ] == [4, 4, 16, 32]
+    for nw in range(1, 129):
+        for rows in (1, 1024, 4096, 10 ** 6):
+            tpi = mk.lanes_per_row(nw, rows, 132)
+            assert mk.padded_words(nw, tpi) // tpi in mk.WORDS_PER_LANE
+    rng = random.Random(0xB45)
+    n = _odd(rng, 80)                                   # L = 5, nw = 3
+    ctx = tmont.make_mont_ctx(n, device="cpu")
+    kn, n0, r2, Lk = mk._kernel_ctx(ctx, mk.padded_words(3, 4))
+    assert Lk == 8 and kn.shape == (8,)
+    assert int(n0[0]) % (1 << 32) == (-pow(n, -1, 1 << 32)) % (1 << 32)
+    assert host.limbs_to_ints(r2[None].long().numpy()) == [
+        (1 << 256) % n]
+
+
+M32 = (1 << 32) - 1
+
+
+def _lookahead(gen, prop):
+    """limb_modexp.cu lookahead(): the carries into each lane and out of
+    the group of a sum whose lanes generate or propagate one."""
+    G = sum(1 << lane for lane, v in enumerate(gen) if v)
+    P = sum(1 << lane for lane, v in enumerate(prop) if v)
+    assert not G & P                     # never both in one lane
+    c = ((G | P) + G) ^ (G | P) ^ G
+    return [(c >> lane) & 1 for lane in range(len(gen))], (c >> len(gen)) & 1
+
+
+def _lanes_mont_mul(a, b, n, n0):
+    """One Montgomery product as kernel B4's mont_mul computes it, lane by
+    lane, in Python: a, b, n are [tpi][W] words (lane l holds words
+    l W .. l W + W - 1).  Returns the lanes' words of a b R^-1 mod n,
+    R = 2^(32 tpi W), and checks the kernel's bounds on the way."""
+    tpi, W = len(a), len(a[0])
+    t = [[0] * W for _ in range(tpi)]
+    cy = [0] * tpi                       # pending at each lane's word 0
+    tx = 0                               # top lane: the bit above the top
+    for src in range(tpi):
+        for wb in range(W):
+            bi = b[src][wb]                                  # broadcast
+            m = ((t[0][0] + a[0][0] * bi) * n0) & M32        # from lane 0
+            u, co = [], []
+            for lane in range(tpi):
+                c1, c2, ul = cy[lane], 0, []
+                for w in range(W):
+                    p = a[lane][w] * bi + t[lane][w] + c1
+                    c1 = p >> 32
+                    q = m * n[lane][w] + (p & M32) + c2
+                    c2 = q >> 32
+                    assert p < 1 << 64 and q < 1 << 64
+                    ul.append(q & M32)
+                u.append(ul)
+                co.append(c1 + c2)                           # < 2^33
+            assert u[0][0] == 0
+            new_t, new_cy = [], []
+            for lane in range(tpi):
+                top = lane == tpi - 1
+                above = tx if top else u[lane + 1][0]        # shfl_down
+                s = above + co[lane]
+                new_t.append(u[lane][1:] + [s & M32])
+                if top:
+                    tx = s >> 32
+                below = co[lane - 1] if lane else 0          # shfl_up
+                new_cy.append((u[lane][0] + below) >> 32 if lane else 0)
+            t, cy = new_t, new_cy
+            assert max(cy) <= 2 and tx <= 1
+    # resolve: each lane's own pending carry, then the carries between
+    # lanes by lookahead
+    gen, prop = [], []
+    for lane in range(tpi):
+        c = cy[lane]
+        for w in range(W):
+            v = t[lane][w] + c
+            t[lane][w], c = v & M32, v >> 32
+        gen.append(c != 0)
+        prop.append(all(x == M32 for x in t[lane]))
+    cin, cout = _lookahead(gen, prop)
+    for lane in range(tpi):
+        c = cin[lane]
+        for w in range(W):
+            v = t[lane][w] + c
+            t[lane][w], c = v & M32, v >> 32
+    tx += cout
+    # conditional subtract of n, borrows by the same lookahead
+    d, gen, prop = [], [], []
+    for lane in range(tpi):
+        bw, dl = 0, []
+        for w in range(W):
+            v = t[lane][w] - n[lane][w] - bw
+            dl.append(v & M32)
+            bw = int(v < 0)
+        d.append(dl)
+        gen.append(bw != 0)
+        prop.append(all(x == 0 for x in dl))
+    bin_, bout = _lookahead(gen, prop)
+    for lane in range(tpi):
+        bw = bin_[lane]
+        for w in range(W):
+            v = d[lane][w] - bw
+            d[lane][w] = v & M32
+            bw = int(v < 0)
+    return d if tx != 0 or bout == 0 else t
+
+
+def _to_lanes(v, tpi, W):
+    return [[(v >> (32 * (lane * W + w))) & M32 for w in range(W)]
+            for lane in range(tpi)]
+
+
+def _from_lanes(lanes):
+    W = len(lanes[0])
+    return sum(x << (32 * (lane * W + w)) for lane, ws in enumerate(lanes)
+               for w, x in enumerate(ws))
+
+
+@pytest.mark.parametrize("nw,tpi", [
+    (3, 4), (8, 4), (8, 8), (8, 16), (8, 32), (32, 4), (32, 8), (32, 16),
+    (32, 32), (64, 8), (64, 16), (64, 32)])
+def test_b4_lane_arithmetic(nw, tpi):
+    """Kernel B4's Montgomery product with a group of ``tpi`` lanes a row,
+    emulated lane by lane (word broadcasts of b_i and m_i, carry-save
+    words, the carry and borrow lookahead across lanes, the conditional
+    subtract) on nw-word moduli padded to tpi * W words: equal to
+    a b R^-1 mod n in Python integers and to the plain mont_mul, on
+    random operands, all-ones words and moduli just below 2^(32 nw)."""
+    W = mk.padded_words(nw, tpi) // tpi
+    assert W in mk.WORDS_PER_LANE
+    R = 1 << (32 * tpi * W)
+    top = 1 << (32 * nw)
+    rng = random.Random(nw * 64 + tpi)
+    moduli = [_odd(rng, 32 * nw), top - 1, top - 3,
+              top - (1 << (32 * nw // 2)) + 1, (top >> 1) + 1]
+    for n in moduli:
+        n0 = (-pow(n, -1, 1 << 32)) % (1 << 32)
+        ctx = tmont.make_mont_ctx(n, 2 * tpi * W, device="cpu")
+        for a, b in [(rng.randrange(n), rng.randrange(n)), (n - 1, n - 1),
+                     (R - 1, n - 1), (R - 1, rng.randrange(n)), (0, n - 1),
+                     (1, 1), (rng.randrange(R), 1)]:
+            got = _from_lanes(_lanes_mont_mul(
+                _to_lanes(a, tpi, W), _to_lanes(b, tpi, W),
+                _to_lanes(n, tpi, W), n0))
+            want = a * b * pow(R, -1, n) % n
+            assert got == want, (n, a, b)
+            if a < n:
+                plain = tmont.mont_mul(
+                    ctx, *(torch.as_tensor(host.ints_to_limbs(
+                        [v], 2 * tpi * W).astype(np.int64)) for v in (a, b)))
+                assert host.limbs_to_ints(plain.numpy()) == [want]
 
 
 def _b1_against_plain(eng, rng, rows, e_bits, fin, tile):
@@ -545,14 +715,22 @@ def test_kernel_b3_matches_plain_on_cuda(cuda_device, bits, rows, fin):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,rows", [(256, 37), (80, 5), (2048, 3)])
+@pytest.mark.parametrize("bits,rows", [(256, 37), (80, 5), (2048, 3),
+                                       (1024, 37), (2048, 21), (4096, 7),
+                                       (1536, 11), (112, 3)])
 def test_kernel_b4_matches_plain_on_cuda(cuda_device, bits, rows):
-    """Kernel B4 against the plain ladder: shared and per-row digits on a
-    shared modulus, and per-row moduli with per-row exponents (the Fermat
-    batch's form), an odd L (80 bits) and a block's ragged tail: equal
-    limbs and equal to Python's pow."""
+    """Kernel B4 against the plain ladder at L = 16, 64, 128 and 256, L = 96
+    (padded to 128) and odd L (80 and 112 bits), with the lanes a row the
+    launcher picks for a few rows (4 to 32): shared and per-row digits on a
+    shared modulus, and per-row
+    moduli with per-row exponents (the Fermat batch's form), on row
+    counts that leave a block's tail ragged: equal limbs and equal to
+    Python's pow."""
     rng = random.Random(bits + 4)
     L = host.limbs_for_bits(bits)
+    tpi = mk.lanes_per_row(-(-L // 2), rows, 132)
+    assert tpi == {16: 8, 5: 4, 128: 32, 64: 32, 256: 32, 96: 32, 7: 4}[L]
+    assert rows % (mk.BLOCK_THREADS // tpi)
     n = _odd(rng, bits)
     ctx = tmont.make_mont_ctx(n, device=cuda_device)
     xs = [rng.randrange(n) for _ in range(rows)]
@@ -575,6 +753,63 @@ def test_kernel_b4_matches_plain_on_cuda(cuda_device, bits, rows):
     assert torch.equal(got, tmont.mont_pow_digits_plain(sctx, x, per, 4))
     assert host.limbs_to_ints(got.cpu().numpy()) == [
         pow(v, e, m) for v, e, m in zip(xs, es, mods)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpi,rows", [(4, 1), (4, 45), (8, 3), (8, 45),
+                                      (16, 5), (16, 45), (32, 2), (32, 45)])
+def test_kernel_b4_lanes_and_blocks_on_cuda(cuda_device, tpi, rows):
+    """Kernel B4 with every lane count it takes (4 to 32 lanes a row, 8 to
+    1 words a lane at L = 64), per-row moduli and digits on fewer rows
+    than a block holds and on 45 rows, which leave the last block ragged
+    at every lane count: equal to the plain ladder and Python's pow."""
+    rng = random.Random(tpi * 100 + rows)
+    assert rows < mk.BLOCK_THREADS // tpi or rows % (mk.BLOCK_THREADS // tpi)
+    mods = [_odd(rng, 1024) for _ in range(rows)]
+    sctx = tmont.stack_mont_ctx(mods, 64, device=cuda_device)
+    xs = [rng.randrange(m) for m in mods]
+    x = torch.as_tensor(host.ints_to_limbs(xs, 64).astype(np.int64),
+                        device=cuda_device)
+    es = [rng.getrandbits(96) for _ in range(rows - 1)] + [0]
+    dig = torch.as_tensor(np.stack([exp_digits(e, 4, 24) for e in es]),
+                          device=cuda_device)
+    before = mk.mont_pow_b4.launches
+    got = mk.launch(sctx, x, dig, 4, tpi)
+    assert mk.mont_pow_b4.launches == before + 1
+    assert torch.equal(got, tmont.mont_pow_digits_plain(sctx, x, dig, 4))
+    assert host.limbs_to_ints(got.cpu().numpy()) == [
+        pow(v, e, m) for v, e, m in zip(xs, es, mods)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,tile,window", [
+    (4096, 33, 8, 4), (4096, 1063, 16, 1), (4096, 2143, 32, 8),
+    (4096, 2143, 32, 4), (6144, 1039, 16, 4), (6144, 33, 8, 8)])
+def test_kernel_b2_tiles_on_cuda(cuda_device, bits, rows, tile, window):
+    """Kernel B2 with tiles of 8, 16 and 32 rows, each picked by the
+    launcher's rule (row counts chosen for an H100's 132 SMs), on ragged
+    row counts at k = 320 and 512, windows 1, 4 and 8, shared and per-row
+    digits with a zero exponent: bit-identical to the plain ladder, one
+    launch each, and the first 65 rows equal to Python's pow."""
+    rng = random.Random(bits + rows + window)
+    n = _odd(rng, bits)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    assert mx.load().rns2_modexp_rows(rows, eng.spec.k) == tile, \
+        "the row counts are chosen for an H100 (132 SMs)"
+    xs = [rng.randrange(n) for _ in range(rows)]
+    x = eng.encode(xs)
+    es = [rng.getrandbits(64) for _ in range(rows - 2)] + [0, (1 << 64) - 1]
+    nd = n_digits_for_bits(64, window)
+    per = torch.as_tensor(np.stack([exp_digits(e, window, nd) for e in es]),
+                          device=cuda_device)
+    m = min(rows, 65)              # Python's pow on the first rows only
+    for digits, want_e in ((per, es), (per[-1], [es[-1]] * rows)):
+        before = mx.rns2_pow_b2.launches
+        got = mx.rns2_pow_b2(eng.ctx, x, digits, window)
+        assert mx.rns2_pow_b2.launches == before + 1
+        assert torch.equal(got, mx.rns2_pow_plain(eng.ctx, x, digits, window))
+        assert eng.decode(got[:m]) == [pow(v, e, n) for v, e in
+                                       zip(xs[:m], want_e[:m])]
 
 
 @pytest.mark.cuda
