@@ -9,12 +9,15 @@ non-zero):
                 power limit.
   2. build   -- builds kernels B1 (csrc/rns2_sliding.cu), B2
                 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
-                (csrc/limb_modexp.cu), one nvcc each, all at once, into
+                (csrc/limb_modexp.cu) and the probes P1-P5
+                (csrc/probe_*.cu), one nvcc each, all at once, into
                 build/paillier_tpu_torch/, and prints the build time and
                 ptxas' register and spill report of every instantiation;
                 counts the IMMA (int8 tensor-core) and IDP4A instructions
                 in the SASS of B1-B3 (cuobjdump -sass) and fails unless B1
-                and B2 have IMMA and no IDP4A and B3 keeps IDP4A.
+                and B2 have IMMA and no IDP4A and B3 keeps IDP4A, and
+                unless the loops of P1-P4 hold IMMA and each of P5's loops
+                its op class once for every value a thread holds.
   3. kernel  -- each kernel against its plain torch version on the same
                 CUDA inputs: residues must be bit-identical (tolerance:
                 exact) and a few rows must equal Python's pow.
@@ -70,11 +73,21 @@ non-zero):
                 keygen(2048, device_primes=True) finds p, q (host
                 Miller-Rabin, 3 mod 4, a 2048-bit n) through B4's per-row
                 moduli.
-Phases 4-8 each set the launch counters to 0 just before their
+  9. probes  -- every variant of P1-P5 (paillier_tpu_torch/probes/
+                cases.py, P4 also with W loaded past L1) is bit-identical
+                to its plain version on CUDA inputs, on 37 and 300 rows
+                and each tile, 3 steps; then the probes' path, python -m
+                paillier_tpu_torch.probes's run_p1..run_p5 at the scripts'
+                full shapes (CUDA events), each probe's headline case also
+                against its plain version at that shape; fails if a probe
+                runs faster than its bound, the least work of its function
+                (a folded loop).
+Phases 4-9 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3 and B4 launches differ from the exact count its entry
 points make fails (the prime search's B4 count is the number of Fermat
-batches it reports).  Then one JSON line describing the kernels,
+batches it reports), and phase 9 fails unless every probe kernel
+launched.  Then one JSON line describing the kernels,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -127,9 +140,14 @@ def ptxas_report(log: str) -> list[str]:
             t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E", m.group(1))
             r = re.search(r"ILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
             w = re.search(r"limb_modexp_kernelILi(\d+)EE", m.group(1))
+            p = re.search(r"(?:probes|vpuops)\d+(\w+?_kernel)I((?:Li\d+E)+)E",
+                          m.group(1))
             name = (f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t
                     else f"<rows={r.group(1)},wide={r.group(2)},{r.group(3)}>"
-                    if r else f"<words={w.group(1)}>" if w else m.group(1))
+                    if r else f"<words={w.group(1)}>" if w
+                    else f" {p.group(1)}<"
+                    + ",".join(re.findall(r"\d+", p.group(2))) + ">" if p
+                    else m.group(1))
         elif "registers" in ln or "spill" in ln:
             out.append(f"{name} {ln.split(':', 1)[-1].strip()}")
     return out
@@ -166,6 +184,14 @@ def main() -> None:
     from paillier_tpu_torch.core import keygen as kg_mod
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
+    from paillier_tpu_torch import probes
+    from paillier_tpu_torch.probes import __main__ as probe_cli
+    from paillier_tpu_torch.probes import dotchain as pr_dotchain
+    from paillier_tpu_torch.probes import dotvar as pr_dotvar
+    from paillier_tpu_torch.probes import overlap as pr_overlap
+    from paillier_tpu_torch.probes import pad as pr_pad
+    from paillier_tpu_torch.probes import vpuops as pr_vpuops
+    from paillier_tpu_torch.probes.cases import CASES as probe_case_list
     b1 = sk_mod.rns2_pow_sliding_b1
     b1_plain = sk_mod.rns2_pow_sliding_plain
     b2 = mx_mod.rns2_pow_b2
@@ -176,6 +202,11 @@ def main() -> None:
     b4_plain = mk_mod.mont_pow_digits_plain
     wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4}
     mods = {"B1": sk_mod, "B2": mx_mod, "B3": fb_mod, "B4": mk_mod}
+    probe_mods = {"P1": pr_dotvar, "P2": pr_dotchain, "P3": pr_overlap,
+                  "P4": pr_pad, "P5": pr_vpuops}
+    probe_wrappers = {"P1": pr_dotvar.dotvar, "P2": pr_dotchain.dotchain,
+                      "P3": pr_overlap.overlap, "P4": pr_pad.pad,
+                      "P4 roll": pr_pad.roll, "P5": pr_vpuops.vpuops}
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
 
@@ -188,13 +219,18 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(mods)) as pool:
-        for fut in [pool.submit(mod.load) for mod in mods.values()]:
+    loaders = [mod.load for mod in mods.values()] + [
+        mod.KERNEL.load for mod in probe_mods.values()]
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(load) for load in loaders]:
             fut.result()
-    phase("build", f"kernels {', '.join(mods)} built in "
-          f"{time.perf_counter() - t0:.2f} s")
+    phase("build", f"kernels {', '.join(mods)} and probes "
+          f"{', '.join(probe_mods)} built in {time.perf_counter() - t0:.2f} s")
     for name, mod in mods.items():
         for ln in ptxas_report(mod.build_log):
+            phase("build", f"{name}{ln}")
+    for name, mod in probe_mods.items():
+        for ln in ptxas_report(mod.KERNEL.build_log):
             phase("build", f"{name}{ln}")
     sass = {}
     for name in ("B1", "B2", "B3"):
@@ -212,6 +248,15 @@ def main() -> None:
     if sass["B3"][1] == 0:
         fail("no IDP4A found in the SASS of B3, which uses __dp4a: the "
              "instruction count does not see it")
+    imma = {}
+    for name, mod in probe_mods.items():
+        code = cuda_build.sass(mod.KERNEL.source)
+        faults = probes.sass_faults(code, mod.SASS_EXPECT)
+        if faults:
+            fail(f"probe {name}'s SASS: " + "; ".join(faults))
+        imma[name] = len(re.findall(r"\bIMMA\.", code))
+    phase("build", "probe SASS: every loop holds its op (IMMA in P1-P4: "
+          + ", ".join(f"{k} {v}" for k, v in imma.items() if v) + ")")
 
     # -- 3. kernel vs plain ------------------------------------------------
     stats = {kname: {"err": 0, "n": 0, "times": []} for kname in mods}
@@ -895,6 +940,95 @@ def main() -> None:
           f"in {t_kg:.3f} s: {fermat} Fermat batches of 64 = {fermat} B4 "
           f"launches, p and q pass Miller-Rabin, 3 mod 4 "
           f"({time.perf_counter() - t0:.1f} s in all)")
+    # -- 9. probes: every variant against its plain version, then the path
+    t0 = time.perf_counter()
+    perr = {key: 0 for key in probe_wrappers}
+    ncmp = 0
+
+    for rows in (37, 300):
+        for tile in probes.TILES:
+            for case in probe_case_list:
+                if not case.tiled and tile != 8:
+                    continue           # P4's roll and P5 take no tile
+                got, want = case.run(rows, tile, dev)
+                for g, w in zip(got, want, strict=True):
+                    err = int((g.long() - w.long()).abs().max())
+                    perr[case.key] = max(perr[case.key], err)
+                    ncmp += 1
+                    if not torch.equal(g, w):
+                        fail(f"probe {case.probe} {case.case} != plain "
+                             f"({rows} rows, tile {tile}): max |diff| {err}")
+    phase("probes", f"{ncmp} outputs of every variant of P1-P5 on 37 and "
+          f"300 rows, tiles {probes.TILES}, bit-identical to plain "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # the probes' path: the entry point's run_p1 .. run_p5 at full shape
+    for w in probe_wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    recs = [r for run in (probe_cli.run_p1, probe_cli.run_p2,
+                          probe_cli.run_p3, probe_cli.run_p4,
+                          probe_cli.run_p5) for r in run(dev)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    plaunch = {key: w.launches for key, w in probe_wrappers.items()}
+    if not all(plaunch.values()):
+        fail(f"the probes' path launched {plaunch}: a probe bypassed its "
+             f"kernel")
+    for r in recs:
+        phase("probes", r["line"])
+        if r["ms"] < r["bound_ms"]:
+            fail(f"probe {r['probe']} {r['case']} took {r['ms']:.4f} ms, "
+                 f"less than its bound {r['bound_ms']:.4f}: a folded loop")
+    phase("probes", f"path {dt:.2f} s; launches " + ", ".join(
+        f"{k} {v}" for k, v in plaunch.items()))
+
+    def rec_of(probe, case):
+        return next(r for r in recs if r["probe"] == probe
+                    and r["case"] == case)
+
+    dv, dc, ov = pr_dotvar, pr_dotchain, pr_overlap
+    pd, vp = pr_pad, pr_vpuops
+    heads = {   # key: (record, inputs, kernel, plain version) at full shape
+        "P1": (rec_of("P1", "fused2"), dv.inputs(dv.B, device=dev),
+               lambda a: [dv.dotvar(*a, dv.STEPS, "fused2")],
+               lambda a: [dv.dotvar_plain(*a, dv.STEPS, "fused2")]),
+        "P2": (rec_of("P2", f"{dc.B} rows, tile {probes.tile_rows(dc.B)}"),
+               dc.inputs(dc.B, device=dev),
+               lambda a: [dc.dotchain(*a, dc.STEPS)],
+               lambda a: [dc.dotchain_plain(*a, dc.STEPS)]),
+        "P3": (rec_of("P3", "both"), ov.inputs(ov.B, device=dev),
+               lambda a: ov.overlap(*a, ov.STEPS, "both"),
+               lambda a: ov.overlap_plain(*a, ov.STEPS, "both")),
+        "P4": (rec_of("P4", f"768 lanes, {pd.B} rows, tile "
+                      f"{probes.tile_rows(pd.B)}"),
+               pd.inputs(768, pd.B, device=dev),
+               lambda a: [pd.pad(*a, 16 * pd.STEPS)],
+               lambda a: [pd.pad_plain(*a, 16 * pd.STEPS)]),
+        "P4 roll": (rec_of("P4", "roll+add"), (pd.roll_input(pd.B,
+                                                             device=dev),),
+                    lambda a: [pd.roll(*a, 64 * pd.ROLL_STEPS)],
+                    lambda a: [pd.roll_plain(*a, 64 * pd.ROLL_STEPS)]),
+        "P5": (rec_of("P5", "red"), vp.inputs(vp.B, device=dev),
+               lambda a: [vp.vpuops(*a, vp.REPS, "red")],
+               lambda a: [vp.vpuops_plain(*a, vp.REPS, "red")]),
+    }
+    probe_plain_ms = {}
+    for key, (rec, a, run_k, run_p) in heads.items():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        got = run_k(a)
+        ev[0].record()
+        want = run_p(a)
+        ev[1].record()
+        torch.cuda.synchronize()
+        probe_plain_ms[key] = ev[0].elapsed_time(ev[1])
+        if not all(torch.equal(g, w)
+                   for g, w in zip(got, want, strict=True)):
+            fail(f"probe {key} {rec['case']} != plain at the full shape")
+    phase("probes", "full shapes bit-identical to plain; plain ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in probe_plain_ms.items())
+          + f" ({time.perf_counter() - t0:.1f} s in all)")
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- bounds: the least time the card could take for each timed call ----
@@ -941,6 +1075,19 @@ def main() -> None:
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": None, "times": stats[kname]["times"]}
 
+    def probe_entry(key, name, source, replaces):
+        rec = heads[key][0]
+        keep = [{k: v for k, v in r.items() if k != "line"} for r in recs
+                if (r["probe"], r["case"] in ("roll+add", "add-only"))
+                == (key.split()[0], key == "P4 roll")]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": plaunch[key],
+                "max_abs_err": perr[key], "ms": rec["ms"],
+                "plain_ms": probe_plain_ms[key], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                "times": keep}
+
+    csrc = "paillier_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         entry("B1", "rns2_sliding", "paillier_tpu_torch/csrc/rns2_sliding.cu",
               "paillier_tpu/bigint/pallas_rns2.py:185", b1_ms, b1_plain_ms,
@@ -955,6 +1102,17 @@ def main() -> None:
         entry("B4", "limb_modexp", "paillier_tpu_torch/csrc/limb_modexp.cu",
               "paillier_tpu/bigint/pallas_kernels.py:155", b4_ms, b4_plain_ms,
               b4_bound),
+        probe_entry("P1", "probe_dotvar", csrc + "probe_dotvar.cu",
+                    pr_dotvar.SCRIPT),
+        probe_entry("P2", "probe_dotchain", csrc + "probe_dotchain.cu",
+                    pr_dotchain.SCRIPT),
+        probe_entry("P3", "probe_overlap", csrc + "probe_overlap.cu",
+                    pr_overlap.SCRIPT),
+        probe_entry("P4", "probe_pad", csrc + "probe_pad.cu", pr_pad.SCRIPT),
+        probe_entry("P4 roll", "probe_roll", csrc + "probe_pad.cu",
+                    pr_pad.SCRIPT_ROLL),
+        probe_entry("P5", "probe_vpuops", csrc + "probe_vpuops.cu",
+                    pr_vpuops.SCRIPT),
     ]}), flush=True)
     print(f"nvidia-smi: {smi_name_power()}", flush=True)
     print(json.dumps({"ok": True, "device": {

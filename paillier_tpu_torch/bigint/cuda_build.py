@@ -108,6 +108,58 @@ def sass(source: Path) -> str:
     return proc.stdout
 
 
+_FUNC = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]+\s+)?"
+                   r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)(.*)")
+_TARGET = re.compile(r"`?\(?(\.L_x_\d+|0x[0-9a-f]+)\)?")
+
+
+def sass_loop_ops(code: str) -> dict[str, list[str]]:
+    """For each function of ``cuobjdump -sass`` output, the opcodes (with
+    their modifiers, e.g. ``IMMA.16832.S8.S8``) of the instructions that
+    lie inside a loop: between a branch's target and the branch, where
+    the target is not after the branch.  Targets may be labels
+    (``.L_x_3``) or addresses (``0x0210``)."""
+    funcs: dict[str, list] = {}
+    insns: list = []
+    labels: dict[str, int] = {}
+    pending: list[str] = []
+    for line in code.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            insns, labels, pending = [], {}, []
+            funcs[m.group(1)] = (insns, labels)
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSN.search(line)
+        if m and funcs:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    out = {}
+    for name, (insns, labels) in funcs.items():
+        spans = []
+        for addr, op, rest in insns:
+            if op.split(".")[0] != "BRA":
+                continue
+            t = _TARGET.search(rest)
+            if t is None:
+                continue
+            tgt = t.group(1)
+            tgt = labels.get(tgt) if tgt.startswith(".L") else int(tgt, 16)
+            if tgt is not None and tgt <= addr:
+                spans.append((tgt, addr))
+        out[name] = [op for addr, op, _ in insns
+                     if any(a <= addr <= b for a, b in spans)]
+    return out
+
+
 def pack_dp4a(e: torch.Tensor) -> torch.Tensor:
     """int8 [2k, 2k] -> int32 [2k/4, 2k]: word (q, j) holds the bytes
     e[4q + t, j], t = 0..3, in little-endian order (the __dp4a layout)."""
@@ -117,22 +169,23 @@ def pack_dp4a(e: torch.Tensor) -> torch.Tensor:
 
 
 def pack_mma(e: torch.Tensor) -> torch.Tensor:
-    """int8 [2k, 2k] -> int8 [k/16, k/16, 2, 2, 32, 16], the A fragments
+    """int8 [D, 2c] -> int8 [c/16, D/64, 2, 2, 32, 16], the A fragments
     of ``mma.m16n8k32.row.col.s8`` over E^T (csrc/rns2_mont_mma.cuh):
     [channel group cg][64-digit slice s][k32 step u][lo/hi h][lane][16 B].
+    The ladders' matrices are square (D = 2c = 2k); the probes
+    (``paillier_tpu_torch/probes``) also pack [640, 768] and [640, 384].
 
     Lane 4g + t holds, in register 2j + i (bytes 4 (2j + i) + b), the entry
-    E[64 s + 16 t + 8 u + 4 j + b, h k + 16 cg + 8 i + g]: fragment row
+    E[64 s + 16 t + 8 u + 4 j + b, h c + 16 cg + 8 i + g]: fragment row
     (channel) g + 8 i, fragment column (digit) 16 j + 4 t + b of step
     2 s + u, whose digits are permuted within the 64-digit slice so that
     a lane's B fragments of both steps are bytes 16 t .. 16 t + 15 of a
     digit row."""
-    C = e.shape[0]
-    k = C // 2
+    D, c = e.shape[0], e.shape[1] // 2
     # p = (s, t, u, j, b), column = (h, cg, i, g)
-    v = e.reshape(k // 32, 4, 2, 2, 4, 2, k // 16, 2, 8)
+    v = e.reshape(D // 64, 4, 2, 2, 4, 2, c // 16, 2, 8)
     return v.permute(6, 0, 2, 5, 8, 1, 3, 7, 4).contiguous().reshape(
-        k // 16, k // 32, 2, 2, 32, 16)
+        c // 16, D // 64, 2, 2, 32, 16)
 
 
 def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:

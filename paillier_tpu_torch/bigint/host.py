@@ -21,11 +21,10 @@ import numpy as np
 
 
 def _native():
-    """The native GMP host-math runtime, or None.
-
-    The port runs the pure-Python paths only: building the GMP helper
-    waits for the threshold/safe-prime slice (ROADMAP A.9)."""
-    return None
+    """The native GMP host-math runtime (:mod:`paillier_tpu_torch.native`),
+    or None (pure-Python fallback)."""
+    from .. import native
+    return native if native.available() else None
 
 
 # Limb parameters for the device representation: little-endian base-2^16
@@ -162,7 +161,7 @@ def hensel_inverse(n: int, n_limbs: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Primality (host control plane; pure Python in the port)
+# Primality (host control plane; native GMP when it loads)
 # ---------------------------------------------------------------------------
 
 _SMALL_PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53,

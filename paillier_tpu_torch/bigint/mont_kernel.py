@@ -114,6 +114,18 @@ def _kernel_ctx(ctx: MontCtx, n_words: int | None = None) -> tuple:
             r2.to(torch.int32).contiguous(), L)
 
 
+def check_width(ctx: MontCtx) -> None:
+    """Raise ValueError, naming the modulus bits, where the kernel cannot
+    take ``ctx``'s width (more than :data:`MAX_LIMBS` limbs)."""
+    L = ctx.n_limbs
+    if L > MAX_LIMBS:
+        bits = max(v.bit_length() for v in limbs_to_ints(
+            ctx.n.reshape(-1, L).cpu().numpy()))
+        raise ValueError(
+            f"kernel B4 takes moduli of at most {16 * MAX_LIMBS} bits "
+            f"({MAX_LIMBS} limbs), got a {bits}-bit modulus in {L} limbs")
+
+
 def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
                 window: int = 4) -> torch.Tensor:
     """base^e mod n by the fixed-window Montgomery ladder.
@@ -139,8 +151,7 @@ def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
     if base.dim() != 2 or base.shape[-1] != L:
         raise ValueError(f"base must be limbs [B, {L}], got "
                          f"{tuple(base.shape)}")
-    if L > MAX_LIMBS:
-        raise ValueError(f"kernel B4 takes at most {MAX_LIMBS} limbs, got {L}")
+    check_width(ctx)
     B = base.shape[0]
     per_row_ctx = ctx.n.dim() == 2
     if per_row_ctx and ctx.n.shape[0] != B:

@@ -76,6 +76,13 @@ NI2 = 5
 # sum error; checked against each concrete spec in Rns2Spec.__init__.
 COX_EPS = 0.05
 
+# The widest modulus Rns2Spec takes: its channels are the sub-14-bit
+# primes, and 2k = 1408 of them (k = 704, the kernels' K_MAX) cover at
+# most an 8661-bit modulus under the M, M2 bounds below (checked by
+# tests/test_torch_api.py).  Level 2 of a 4096-bit key (n^3, 12,288
+# bits) is beyond it.
+MAX_MODULUS_BITS = 8661
+
 
 def _primes_descending(count: int) -> list[int]:
     """``count`` largest primes below MCAP (descending)."""

@@ -184,6 +184,7 @@ class Decryptor:
             raise ValueError(f"level must be 1 or 2, got {level}")
         self.sk = sk
         self.dk = sk.device(device)
+        self.dk.check_level(level)
         self.level = level
         self.crt = crt and level == LEVEL_ONE
         self.s = level

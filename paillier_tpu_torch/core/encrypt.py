@@ -145,6 +145,7 @@ class Encryptor:
             raise ValueError(f"level must be 1 or 2, got {level}")
         self.pk = pk
         self.dk = pk.device(device)
+        self.dk.check_level(level)
         self.level = level
         self.method = method
         self.rng = rng or prand.make_rng()
@@ -197,6 +198,12 @@ class Encryptor:
         rd = mont.limbs_to_digits(rl, COMB_WINDOW, nd)
         return Ciphertext(c=self._fn(m, rd.reshape(m.shape[:-1] + (nd,))),
                           level=self.level, method=ALTERNATIVE)
+
+    def encrypt_zeros(self, count: int) -> Ciphertext:
+        return self.encrypt([0] * count)
+
+    def encrypt_ones(self, count: int) -> Ciphertext:
+        return self.encrypt([1] * count)
 
 
 def nested_encrypt(pk: PublicKey, ms: Sequence[int], rng=None, *,

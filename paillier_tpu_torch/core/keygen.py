@@ -32,9 +32,9 @@ def keygen(secparam: int, rng=None, device_primes: Optional[bool] = None,
 
     ``device_primes``: search the primes with :func:`device_batched_prime`
     on ``device``.  Default (None): as the JAX package decides, for keys
-    of 2048 bits and more when no native GMP runtime is loaded, which the
-    port never has (``host._native()``).  ``device`` is read only by the
-    device search.
+    of 2048 bits and more when the native GMP runtime
+    (:mod:`paillier_tpu_torch.native`) does not load.  ``device`` is read
+    only by the device search.
     """
     if secparam % 2 != 0:
         raise ValueError("keygen: secparam must be divisible by 2")
@@ -44,7 +44,8 @@ def keygen(secparam: int, rng=None, device_primes: Optional[bool] = None,
     rng = rng or prand.make_rng()
     half = secparam // 2
     if device_primes is None:
-        device_primes = secparam >= 2048 and host._native() is None
+        from .. import native
+        device_primes = secparam >= 2048 and not native.available()
     while True:
         if device_primes:
             p = device_batched_prime(half, rng, congruent_3_mod_4=True,

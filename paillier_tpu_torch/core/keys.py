@@ -118,9 +118,21 @@ class DeviceKey:
         self._rns: dict = {}
         self._plans: dict = {}
 
+    def check_level(self, level: int) -> None:
+        """Raise ValueError if the RNS engine cannot take this key's
+        modulus n^(s+1) at ``level`` (``rns2.MAX_MODULUS_BITS``)."""
+        from ..bigint.rns2 import MAX_MODULUS_BITS
+        bits = self.pk.modulus_for_level(level).bit_length()
+        if bits > MAX_MODULUS_BITS:
+            raise ValueError(
+                f"a {self.pk.bits}-bit key at level {level} has a {bits}-bit "
+                f"modulus n^{level + 1}; the RNS engine takes moduli of at "
+                f"most {MAX_MODULUS_BITS} bits")
+
     def rns(self, level: int):
         """RNS engine for modulus n^(s+1), cached."""
         if level not in self._rns:
+            self.check_level(level)
             from ..bigint.engine import make_engine
             self._rns[level] = make_engine(self.pk.modulus_for_level(level),
                                            self.limbs_for_level(level),

@@ -176,11 +176,23 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const int4& a, int b0,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
+// How ext_mma loads the packed matrix: through the read-only data cache
+// (__ldg), as B1 and B2 read it.  LoadL2 (ld.global.cg) caches in L2 only,
+// so every load is an L2 read (the probe P4's L2 rate case).
+struct LoadNC {
+  __device__ __forceinline__ static int4 ld(const int4* p) { return __ldg(p); }
+};
+struct LoadL2 {
+  __device__ __forceinline__ static int4 ld(const int4* p) {
+    return __ldcg(p);
+  }
+};
+
 // lo / hi sums of channel group cg for all R rows: lo[n][j] is channel
 // cg*16 + g + 8*(j >> 1) of row 8n + 2t + (j & 1); hi the same channel's
 // hi column.  ep: the pack_mma matrix, [G][2k/32][2][32] int4 (k32 step,
 // lo/hi, lane).
-template <int R>
+template <int R, typename LD = LoadNC>
 __device__ __forceinline__ void ext_mma(const Ctx& cx, const int8_t* lhs,
                                         const int4* __restrict__ ep, int cg,
                                         int (&lo)[R / 8][4],
@@ -194,11 +206,11 @@ __device__ __forceinline__ void ext_mma(const Ctx& cx, const int8_t* lhs,
   const int8_t* bp = lhs + cx.g * cx.LS + 16 * cx.t;
   int4 a[4], nx[4];                // [step u][lo, hi], this slice and next
 #pragma unroll
-  for (int q = 0; q < 4; ++q) a[q] = __ldg(ap + 32 * q);
+  for (int q = 0; q < 4; ++q) a[q] = LD::ld(ap + 32 * q);
   for (int s = 0; s < npair; ++s) {
     const int4* np = ap + 128 * min(s + 1, npair - 1);   // one slice ahead
 #pragma unroll
-    for (int q = 0; q < 4; ++q) nx[q] = __ldg(np + 32 * q);
+    for (int q = 0; q < 4; ++q) nx[q] = LD::ld(np + 32 * q);
 #pragma unroll
     for (int n = 0; n < R / 8; ++n) {
       const int4 b = *reinterpret_cast<const int4*>(bp + 8 * n * cx.LS +

@@ -72,7 +72,7 @@ def test_pack_dp4a_layout():
     assert np.array_equal(acc, lhs @ e)
 
 
-def _mma_emulate(packed, lhs, k):
+def _mma_emulate(packed, lhs, k, c=None):
     """Kernel B1's base extension as rns2_mont_mma.cuh runs it, in numpy:
     for channel group cg and 64-digit slice s, lane (g, t) takes its A
     fragments (lo and hi, k32 steps u = 0, 1) as 16 bytes of ``packed``
@@ -82,8 +82,9 @@ def _mma_emulate(packed, lhs, k):
     n = 2t + (j & 1)) are the lo / hi columns of channel 16 cg + m of
     batch row 8 n + 2t + (j & 1)."""
     R = lhs.shape[0]
-    G, S2 = k // 16, k // 32
-    P = np.zeros((R, 2 * k), np.int64)
+    c = c or k                  # columns a half ([2k, 2c] matrices)
+    G, S2 = c // 16, k // 32
+    P = np.zeros((R, 2 * c), np.int64)
     pk = packed.reshape(G, S2, 2, 2, 32, 16).astype(np.int64)
     for nt in range(R // 8):
         rows = lhs[8 * nt:8 * nt + 8].astype(np.int64)
@@ -114,7 +115,7 @@ def _mma_emulate(packed, lhs, k):
                 ch = 16 * np.arange(G) + g + 8 * (j >> 1)
                 row = 8 * nt + 2 * t + (j & 1)
                 P[row, ch] = acc[:, 0, lane, j]
-                P[row, k + ch] = acc[:, 1, lane, j]
+                P[row, c + ch] = acc[:, 1, lane, j]
     return P
 
 
@@ -845,3 +846,146 @@ def test_alt_extract_and_prime_search_on_cuda(cuda_device):
     assert p.bit_length() == 256 and p % 4 == 3 and host.is_probable_prime(p)
     assert mk.mont_pow_b4.launches - b4 == \
         kg.device_batched_prime.batches - batches > 0
+
+
+# -- probes P1-P5 (paillier_tpu_torch/probes, csrc/probe_*.cu) ------------
+
+@pytest.mark.parametrize("lanes", [768, 384])
+def test_pack_mma_rectangular(lanes):
+    """The probes' packings of [640, 768] and [640, 384] (halves of
+    lanes / 2 columns): the fragment products over the packed words equal
+    the int8 product."""
+    from paillier_tpu_torch.bigint.limbmm import _dot_i8
+    rng = np.random.default_rng(lanes)
+    e = torch.as_tensor(rng.integers(-128, 128, size=(640, lanes)),
+                        dtype=torch.int8)
+    packed = cuda_build.pack_mma(e)
+    assert tuple(packed.shape) == (lanes // 32, 10, 2, 2, 32, 16)
+    lhs = torch.as_tensor(rng.integers(-128, 128, size=(8, 640)),
+                          dtype=torch.int8)
+    assert np.array_equal(_mma_emulate(packed.numpy(), lhs.numpy(), 320,
+                                       lanes // 2), _dot_i8(lhs, e).numpy())
+
+
+_SASS_LABELS = """
+        Function : _ZN6probes9loop_testEv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+.L_x_0:
+        /*0010*/                   IMMA.16832.S8.S8 R4, R8, R12, R4 ;
+        /*0020*/               @P0 BRA `(.L_x_1) ;
+        /*0030*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0040*/              @!P1 BRA `(.L_x_0) ;
+.L_x_1:
+        /*0050*/                   F2I.FLOOR.NTZ R2, R3 ;
+        /*0060*/                   EXIT ;
+        Function : _ZN6vpuops10vpu_kernelILi7EEEvPKiPKfPiii
+        /*0000*/                   F2I.TRUNC.NTZ R2, R3 ;
+        /*0010*/                   F2I.FLOOR.NTZ R2, R3 ;
+        /*0020*/                   ISETP.GE.AND P0, PT, R0, 0x7, PT ;
+        /*0030*/               @P0 BRA 0x10 ;
+        /*0040*/                   EXIT ;
+"""
+
+
+def test_sass_loop_ops():
+    """Loops are found by backward branches to labels or addresses; a
+    forward branch opens none; only loop instructions count."""
+    from paillier_tpu_torch.probes import sass_faults
+    loops = cuda_build.sass_loop_ops(_SASS_LABELS)
+    assert loops == {
+        "_ZN6probes9loop_testEv": ["IMMA.16832.S8.S8", "BRA", "IADD3", "BRA"],
+        "_ZN6vpuops10vpu_kernelILi7EEEvPKiPKfPiii": [
+            "F2I.FLOOR.NTZ", "ISETP.GE.AND", "BRA"]}
+    assert sass_faults(_SASS_LABELS, {"loop_test": [("IMMA", 1)],
+                                      r"vpu_kernelILi7E": [("F2I", 1)]}) == []
+    faults = sass_faults(_SASS_LABELS, {"loop_test": [("F2I", 1)],
+                                        r"vpu_kernelILi7E": [("F2I", 2)],
+                                        "missing": [("IMMA", 1)]})
+    assert len(faults) == 3 and "no function matches missing" in faults
+    # a (pattern, least, most) entry also bounds the count from above
+    assert sass_faults(_SASS_LABELS, {"loop_test": [("BRA", 0, 2)]}) == []
+    faults = sass_faults(_SASS_LABELS, {"loop_test": [("IMMA", 0, 0)]})
+    assert faults == ["_ZN6probes9loop_testEv: 1 IMMA in its loops, want "
+                      "0..0"]
+
+
+def test_probe_wrappers_on_the_cpu():
+    """A CPU tensor takes the plain version without building anything; a
+    tensor on another device, a wrong variant or a wrong shape raises."""
+    from paillier_tpu_torch import probes
+    from paillier_tpu_torch.probes import dotchain, dotvar, pad, vpuops
+    x, mlo, mhi = dotvar.inputs(rows=3)
+    before = dotvar.dotvar.launches
+    assert torch.equal(dotvar.dotvar(x, mlo, mhi, 1, "wide1"),
+                       dotvar.dotvar_plain(x, mlo, mhi, 1, "wide1"))
+    assert dotvar.dotvar.launches == before
+    with pytest.raises(ValueError, match="variant"):
+        dotvar.dotvar_plain(x, mlo, mhi, 1, "split3")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dotchain.dotchain(x.to("meta"), mlo, mhi, 1)
+    with pytest.raises(ValueError, match="int8"):
+        probes.check(x.int(), "x", torch.int8, (None, probes.D))
+    with pytest.raises(ValueError, match="lanes"):
+        pad.inputs(512)
+    with pytest.raises(ValueError, match="op"):
+        vpuops.vpuops_plain(*vpuops.inputs(rows=2), 1, "div")
+    with pytest.raises(ValueError, match="tile"):
+        probes.pick_tile(12, 100)
+
+
+def test_probes_entry_point_on_the_cpu(capsys):
+    """``python -m paillier_tpu_torch.probes --device cpu --steps 2`` runs
+    every probe's plain version at the scripts' shapes, 2 steps each, and
+    prints a line for each case with its bound."""
+    from paillier_tpu_torch.probes import __main__ as cli
+    from paillier_tpu_torch.probes import dotvar, overlap, pad, vpuops
+    cli.main(["--device", "cpu", "--steps", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("device: cpu")
+    count = {p: sum(ln.startswith(p + " ") for ln in lines)
+             for p in ("P1", "P2", "P3", "P4", "P5")}
+    assert count == {"P1": len(dotvar.VARIANTS), "P2": 6,
+                     "P3": len(overlap.MODES), "P4": len(pad.WIDTHS) + 2,
+                     "P5": len(vpuops.OPS)}
+    assert all("bound" in ln and " 2 steps" in ln
+               for ln in lines if ln.startswith(("P1", "P2", "P3")))
+    with pytest.raises(SystemExit):
+        cli.main(["p6", "--device", "cpu"])
+
+
+def _probe_cases():
+    from paillier_tpu_torch.probes.cases import CASES
+    return [pytest.param(c, id=f"{c.probe}-{c.case}") for c in CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _probe_cases())
+def test_probe_matches_plain_on_cuda(cuda_device, case):
+    """Every variant of P1-P5 (``probes.cases``) is bit-identical to its
+    plain version on CUDA inputs, at each tile and on ragged row counts
+    (1, 37, 300); one launch per call, counted by the case's wrapper."""
+    from paillier_tpu_torch.probes import dotchain, dotvar, overlap, pad
+    from paillier_tpu_torch.probes import vpuops
+    wrappers = (dotvar.dotvar, dotchain.dotchain, overlap.overlap, pad.pad,
+                pad.roll, vpuops.vpuops)
+    for rows in (1, 37, 300):
+        for tile in (8, 16, 32) if case.tiled else (None,):
+            before = [w.launches for w in wrappers]
+            got, want = case.run(rows, tile, cuda_device)
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [
+                int(w is case.wrapper) for w in wrappers]
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g, w), (case.probe, case.case, rows, tile)
+
+
+@pytest.mark.cuda
+def test_probe_sass_loops_hold_their_ops(cuda_device):
+    """The SASS of P1-P4 holds IMMA inside each kernel's loop, and each of
+    P5's op classes sits inside its loop once for every value a thread
+    holds (the op was not folded or hoisted)."""
+    from paillier_tpu_torch.probes import (dotchain, dotvar, overlap, pad,
+                                           sass_faults, vpuops)
+    for mod in (dotvar, dotchain, overlap, pad, vpuops):
+        mod.KERNEL.load()
+        code = cuda_build.sass(mod.KERNEL.source)
+        assert sass_faults(code, mod.SASS_EXPECT) == [], mod.__name__

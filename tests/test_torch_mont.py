@@ -27,6 +27,7 @@ from paillier_tpu.core import homomorphic as jhom
 from paillier_tpu.core import keygen as jkeygen_mod
 from paillier_tpu.core import keys as jkeys
 from paillier_tpu_torch import homomorphic as hom
+from paillier_tpu_torch import native as tnative
 from paillier_tpu_torch.bigint import host
 from paillier_tpu_torch.bigint import montgomery as tmont
 from paillier_tpu_torch.core import keygen as tkeygen_mod
@@ -182,7 +183,9 @@ def test_device_batched_prime_parity():
 
 def test_keygen_device_primes_parity(monkeypatch):
     """keygen(device_primes=True) gives the JAX package's key; the auto
-    rule sends keys of 2048 bits and more to the device search."""
+    rule sends keys of 2048 bits and more to the device search when the
+    native GMP runtime does not load (tests/test_torch_native.py: the
+    host search where it does)."""
     tsk, _ = pt.keygen(64, random.Random(0xD0E2), device_primes=True,
                        device="cpu")
     jsk, _ = jkeygen_mod.keygen(64, random.Random(0xD0E2), device_primes=True)
@@ -197,6 +200,7 @@ def test_keygen_device_primes_parity(monkeypatch):
         raise Routed(k.get("device"))
 
     monkeypatch.setattr(tkeygen_mod, "device_batched_prime", stub)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     with pytest.raises(Routed, match="cuda"):
         pt.keygen(2048, random.Random(1))
     assert pt.keygen(128, random.Random(1))[0].bits == 128   # host search
