@@ -10,8 +10,8 @@ PyTorch's current stream.  Nothing here runs at import time, and nothing
 falls back: a missing ``nvcc`` or a failed build raises.
 
 Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
-matrix packings, tensor-core fragments for B1 and B2 and ``__dp4a``
-words for B3, and the checks of a context against an operand).
+matrices packed into tensor-core fragments, and the checks of a context
+against an operand).
 """
 
 from __future__ import annotations
@@ -160,14 +160,6 @@ def sass_loop_ops(code: str) -> dict[str, list[str]]:
     return out
 
 
-def pack_dp4a(e: torch.Tensor) -> torch.Tensor:
-    """int8 [2k, 2k] -> int32 [2k/4, 2k]: word (q, j) holds the bytes
-    e[4q + t, j], t = 0..3, in little-endian order (the __dp4a layout)."""
-    C = e.shape[0]
-    return (e.reshape(C // 4, 4, C).permute(0, 2, 1).contiguous()
-            .view(torch.int32).reshape(C // 4, C))
-
-
 def pack_mma(e: torch.Tensor) -> torch.Tensor:
     """int8 [D, 2c] -> int8 [c/16, D/64, 2, 2, 32, 16], the A fragments
     of ``mma.m16n8k32.row.col.s8`` over E^T (csrc/rns2_mont_mma.cuh):
@@ -208,9 +200,9 @@ def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:
             raise ValueError(f"context {name} on {t.device}, x on {x.device}")
 
 
-def context_pointers(ctx, pack=pack_dp4a) -> tuple:
-    """The context as the kernels take it: contiguous ic1, ic2, f1, f2 and
-    the two matrices packed by ``pack`` (:func:`pack_mma` for B1 and B2,
-    :func:`pack_dp4a` for B3; kept alive by the caller)."""
+def context_pointers(ctx) -> tuple:
+    """The context as kernels B1-B3 take it: contiguous ic1, ic2, f1, f2
+    and the two matrices packed by :func:`pack_mma` (kept alive by the
+    caller)."""
     return (ctx.ic1.contiguous(), ctx.ic2.contiguous(), ctx.f1.contiguous(),
-            ctx.f2.contiguous(), pack(ctx.e1g), pack(ctx.e2g))
+            ctx.f2.contiguous(), pack_mma(ctx.e1g), pack_mma(ctx.e2g))

@@ -3,11 +3,11 @@
 Replaces ``paillier_tpu/bigint/pallas_rns2.py:_fixed_base_kernel``
 (wrapper ``rns2_pow_fixed_base_pallas``).  The kernel is hand-written
 CUDA C++ in ``paillier_tpu_torch/csrc/rns2_fixed_base.cu`` (its header
-note gives the layout and what bounds it; its ``__dp4a`` Montgomery
-multiply is in ``csrc/rns2_mont.cuh``, whose reductions kernels B1 and B2
-share); :mod:`cuda_build`
-builds it with ``nvcc`` for ``sm_90a`` at first use and binds its plain C
-entry point with ``ctypes``; it launches on PyTorch's current stream.
+note gives the layout and what bounds it; the Montgomery multiply on int8
+tensor cores, the per-row table copy and the tile rule are kernel B1's and
+B2's, in ``csrc/rns2_mont_mma.cuh``); :mod:`cuda_build` builds it with
+``nvcc`` for ``sm_90a`` at first use and binds its plain C entry point
+with ``ctypes``; it launches on PyTorch's current stream.
 
 :func:`rns2_pow_fixed_base_b3` takes a CPU table to the plain version,
 :func:`rns2_pow_fixed_base_plain` (re-exported here from :mod:`rns2`),
@@ -41,9 +41,9 @@ def load():
     lib, build_log = cuda_build.build(SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rns2_fixed_base_launch.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp,
-                                           vp, vp, vp, ci, ci, ci, vp]
+                                           vp, vp, vp, ci, ci, ci, ci, vp]
     lib.rns2_fixed_base_launch.restype = ci
-    lib.rns2_fixed_base_rows.argtypes = []
+    lib.rns2_fixed_base_rows.argtypes = [ci, ci]
     lib.rns2_fixed_base_rows.restype = ci
     _lib = lib
     return lib
@@ -58,8 +58,9 @@ def rns2_pow_fixed_base_b3(ctx: Rns2Context, table: torch.Tensor, digits,
     digits: int [B, D] per row, MSB-first base-2^window; fin: canonical
     int32 [B, C] or [C] residues (None: 1).  Returns int32 [B, C]
     canonical residues of a value < lambda*N, bit-identical to
-    :func:`rns2_pow_fixed_base_plain`.  A CPU table runs the plain
-    version; a CUDA table launches the kernel and adds one to
+    :func:`rns2_pow_fixed_base_plain`.  The launcher picks the kernel's
+    tile rows (``rns2_fixed_base_rows``, B1's rule).  A CPU table runs the
+    plain version; a CUDA table launches the kernel and adds one to
     ``rns2_pow_fixed_base_b3.launches``.
     """
     if table.device.type == "cpu":
@@ -86,22 +87,25 @@ def rns2_pow_fixed_base_b3(ctx: Rns2Context, table: torch.Tensor, digits,
             raise ValueError("fin must be int32 on the device of the table")
         fin = fin.expand(B, C).contiguous()
     lib = load()
-    rows = lib.rns2_fixed_base_rows()
-    Bp = -(-B // rows) * rows
-    # pad rows read entry 0 of each step and are not stored
-    dig = torch.nn.functional.pad(digits.to(torch.int32),
-                                  (0, 0, 0, Bp - B)).contiguous()
     tbl16 = table.to(torch.int16).contiguous()
-    out = torch.empty((B, C), dtype=torch.int32, device=table.device)
-    ic1, ic2, f1, f2, e1q, e2q = cuda_build.context_pointers(ctx)
+    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(ctx)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
+        rows = lib.rns2_fixed_base_rows(B, ctx.k)
+        if rows <= 0:
+            raise RuntimeError(f"kernel B3's tile rule failed: cudaError "
+                               f"{-rows}")
+        # pad rows read entry 0 of each step and are not stored
+        dig = torch.nn.functional.pad(digits.to(torch.int32),
+                                      (0, 0, 0, -(-B // rows) * rows - B)
+                                      ).contiguous()
+        out = torch.empty((B, C), dtype=torch.int32, device=table.device)
         err = lib.rns2_fixed_base_launch(
             tbl16.data_ptr(), dig.data_ptr(), D,
             fin.data_ptr() if fin is not None else None,
             ic1.data_ptr(), ic2.data_ptr(), f1.data_ptr(), f2.data_ptr(),
-            e1q.data_ptr(), e2q.data_ptr(), out.data_ptr(), B, ctx.k,
-            window, stream)
+            e1p.data_ptr(), e2p.data_ptr(), out.data_ptr(), B, ctx.k,
+            window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B3 launch failed: cudaError {err}")
     rns2_pow_fixed_base_b3.launches += 1

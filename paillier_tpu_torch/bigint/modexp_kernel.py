@@ -96,8 +96,7 @@ def rns2_pow_b2(ctx: Rns2Context, x: torch.Tensor, digits,
     lib = load()
     per_row = digits.dim() == 2
     D = digits.shape[-1]
-    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(
-        ctx, cuda_build.pack_mma)
+    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(ctx)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rows = lib.rns2_modexp_rows(B, ctx.k)

@@ -83,8 +83,7 @@ def rns2_pow_sliding_b1(ctx: Rns2Context, x: torch.Tensor, sched,
                          f"below {T} and sentinels -2 / -1")
     sched_t = torch.as_tensor(sched, device=x.device)
     lib = load()
-    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(
-        ctx, cuda_build.pack_mma)
+    ic1, ic2, f1, f2, e1p, e2p = cuda_build.context_pointers(ctx)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rows = lib.rns2_sliding_rows(B, ctx.k)

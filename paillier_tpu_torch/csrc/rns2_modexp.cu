@@ -54,39 +54,6 @@ __device__ __forceinline__ void copy_rows(const Ctx& cx, int16_t* o1,
   });
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(d), "l"(src) : "memory");
-}
-
-// Start copying table entry dig[r * ds] of every tile row r (ds = 0: one
-// digit for the tile) into (o1, o2), 16 bytes a copy; the table of row r
-// is tb[r][T][2k].  Rows past B read the entry their zero-padded digit
-// names and are never stored.
-template <int R>
-__device__ __forceinline__ void tbl_fetch(const Ctx& cx, int16_t* o1,
-                                          int16_t* o2, const int16_t* tb,
-                                          const int* dig, int ds, int T) {
-  const int k = cx.k;
-  const int half = k / 8;                  // 16-byte copies per base
-  for (int q = threadIdx.x; q < R * 2 * half; q += blockDim.x) {
-    const int r = q / (2 * half);
-    const int j = q - r * 2 * half;        // copy j of the row
-    const int h = j >= half;
-    const int d = __ldg(dig + r * ds);
-    cp_async16((h ? o2 : o1) + r * k + 8 * (j - h * half),
-               tb + ((size_t)r * T + d) * 2 * k + 8 * j);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait for this thread's copies, then for the block's.
-__device__ __forceinline__ void tbl_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-}
-
 template <int R, bool WIDE, int MAXT>
 __global__ void __launch_bounds__(MAXT, 1)
 rns2_modexp_kernel(const int* __restrict__ x, const int* __restrict__ digits,
@@ -132,7 +99,7 @@ rns2_modexp_kernel(const int* __restrict__ x, const int* __restrict__ digits,
   fill_rows<R>(cx, a1, a2, ic1 + I_ONEM * k, ic2 + I_ONEM * k);
   __syncthreads();
   for (int step = 0; step < n_digits; ++step) {
-    tbl_fetch<R>(cx, o1, o2, tb, dig + step, ds, T);
+    tbl_fetch<R>(cx, o1, o2, tb, T, dig + step, ds);
     for (int j = 0; j < window; ++j)
       mont_mul<R, WIDE>(s, cx, a1, a2, a1, a2, a1, a2, true);
     tbl_wait();

@@ -1,6 +1,7 @@
 // The Cox-Rower RNS Montgomery multiply on int8 tensor cores, used by
-// kernels B1 (rns2_sliding.cu) and B2 (rns2_modexp.cu), and the launch
-// rule both kernels share (end of this file).
+// kernels B1 (rns2_sliding.cu), B2 (rns2_modexp.cu) and B3
+// (rns2_fixed_base.cu), the per-row table copy of B2 and B3, and the
+// launch rule the three kernels share (end of this file).
 //
 // It is rns2.rns2_mont_mul_pair on a tile of R batch rows (R = 8, 16 or
 // 32), bit for bit: the reductions and rounding rules are those of
@@ -74,7 +75,8 @@
 //   k > 320: the L2 reads of the matrices bind, so fewer blocks win: the
 //     largest tile whose grid keeps MIN_BLOCKS = 64 blocks (at 1024 rows,
 //     64 blocks of 16 rows beat 128 blocks of 8).
-// B2's block has B1's shared memory and threads, so one rule serves both.
+// B2's and B3's blocks have B1's shared memory and threads, so one rule
+// serves all three.
 
 #pragma once
 
@@ -82,7 +84,7 @@
 
 namespace rns2mma {
 
-// what is shared with the __dp4a multiply (its tile helpers are not)
+// the constants and reductions of rns2_mont.cuh
 using rns2::CHUNK;
 using rns2::COX_EPS;
 using rns2::I1_M2M;
@@ -404,10 +406,46 @@ __device__ __forceinline__ void load_tbl(const Ctx& cx, int16_t* o1,
   });
 }
 
+// Per-row table entries by cp.async (B2's power table, B3's comb).
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+// Start copying, for every tile row r, entry d = dig[r * ds] (ds = 0: one
+// digit for the tile) of the row's table, whose [2k] int16 entries start
+// at tb + r * rs * 2k (rs = 0: one table for the tile), into (o1, o2), 16
+// bytes a copy, as one cp.async group.  Rows past B read the entry their
+// zero-padded digit names and are never stored.
+template <int R>
+__device__ __forceinline__ void tbl_fetch(const Ctx& cx, int16_t* o1,
+                                          int16_t* o2, const int16_t* tb,
+                                          int rs, const int* dig, int ds) {
+  const int k = cx.k;
+  const int half = k / 8;                  // 16-byte copies per base
+  for (int q = threadIdx.x; q < R * 2 * half; q += blockDim.x) {
+    const int r = q / (2 * half);
+    const int j = q - r * 2 * half;        // copy j of the row
+    const int h = j >= half;
+    const int d = __ldg(dig + r * ds);
+    cp_async16((h ? o2 : o1) + r * k + 8 * (j - h * half),
+               tb + ((size_t)r * rs + d) * 2 * k + 8 * j);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies, then for the block's.
+__device__ __forceinline__ void tbl_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------
-// The launch rule shared by B1 and B2.  K is a kernel family: a struct
-// whose `template <int R, bool WIDE, int MAXT> static const void* fn()`
-// returns that instantiation of its kernel.
+// The launch rule shared by B1, B2 and B3.  K is a kernel family: a
+// struct whose `template <int R, bool WIDE, int MAXT> static const void*
+// fn()` returns that instantiation of its kernel.
 
 constexpr int MIN_BLOCKS = 64;   // k > 320: blocks wanted before a larger tile
 constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use

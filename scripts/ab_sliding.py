@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the launch alternatives of kernels B1, B2 and B4 on one GPU.
+"""Time the launch alternatives of kernels B1, B2, B3 and B4 on one GPU.
 
-    python scripts/ab_sliding.py [--kernel b1|b2|b4] [--rows N,N,...]
+    python scripts/ab_sliding.py [--kernel b1|b2|b3|b4] [--rows N,N,...]
                                  [--wide-rows N,N,...]
 
 --kernel b1 (default): builds this tree's B1 and, at k = 320 (e = n,
@@ -18,6 +18,11 @@ fastest, and each tile's blocks and times.
 per-row 2048-bit exponents (512 digits, const_mult's shape) over --rows,
 and at k = 512 with per-row 4096-bit exponents (1,024 digits,
 nested_add's shape) over --wide-rows.
+
+--kernel b3: the same for B3 (tiles of rns2_fixed_base_rows): the comb
+of a fixed base with 256 per-row digits (r < 2^1024, window 4) and fin,
+at k = 320 (alternative encryption at level 1) over --rows and at
+k = 512 (level 2) over --wide-rows.
 
 --kernel b4: B4 with every lane count (4 to 32 lanes a row, as the words
 allow) in blocks of 64, 128 and 256 threads, with a 2048-bit shared
@@ -41,14 +46,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from paillier_tpu_torch.bigint import cuda_build  # noqa: E402
+from paillier_tpu_torch.bigint import fixed_base_kernel as fb  # noqa: E402
 from paillier_tpu_torch.bigint import modexp_kernel as mx  # noqa: E402
 from paillier_tpu_torch.bigint import mont_kernel as mk  # noqa: E402
 from paillier_tpu_torch.bigint import sliding_kernel as sk  # noqa: E402
 from paillier_tpu_torch.bigint.host import ints_to_limbs  # noqa: E402
 from paillier_tpu_torch.bigint.montgomery import (  # noqa: E402
     exp_digits, make_mont_ctx, stack_mont_ctx)
-from paillier_tpu_torch.bigint.rns2 import (Rns2Engine,  # noqa: E402
-                                            sliding_window_schedule)
+from paillier_tpu_torch.bigint.rns2 import (  # noqa: E402
+    Rns2Engine, build_fixed_base_table, sliding_window_schedule)
 
 
 def run_b1(lib, ctx, x, sched, fin, rows):
@@ -57,8 +63,7 @@ def run_b1(lib, ctx, x, sched, fin, rows):
     tbl = torch.empty((-(-B // rows) * rows, 32, C), dtype=torch.int16,
                       device=x.device)
     out = torch.empty_like(x)
-    ic1, ic2, f1, f2, e1, e2 = cuda_build.context_pointers(
-        ctx, cuda_build.pack_mma)
+    ic1, ic2, f1, f2, e1, e2 = cuda_build.context_pointers(ctx)
     st = torch.as_tensor(np.asarray(sched, dtype=np.int32), device=x.device)
     err = lib.rns2_sliding_launch(
         x.data_ptr(), fin.data_ptr() if fin is not None else None,
@@ -78,12 +83,28 @@ def run_b2(lib, ctx, x, dig, rows):
     dig = torch.nn.functional.pad(dig, (0, 0, 0, Bp - B)).contiguous()
     tbl = torch.empty((Bp, 16, C), dtype=torch.int16, device=x.device)
     out = torch.empty_like(x)
-    ic1, ic2, f1, f2, e1, e2 = cuda_build.context_pointers(
-        ctx, cuda_build.pack_mma)
+    ic1, ic2, f1, f2, e1, e2 = cuda_build.context_pointers(ctx)
     err = lib.rns2_modexp_launch(
         x.data_ptr(), dig.data_ptr(), dig.shape[1], 1, ic1.data_ptr(),
         ic2.data_ptr(), f1.data_ptr(), f2.data_ptr(), e1.data_ptr(),
         e2.data_ptr(), tbl.data_ptr(), out.data_ptr(), B, ctx.k, 4, rows,
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"launch failed: cudaError {err}")
+    return out
+
+
+def run_b3(lib, ctx, tbl16, dig, fin, rows):
+    """B3 on (ctx, int16 comb table, per-row digits, fin), window 4, with
+    tiles of ``rows``."""
+    B, D = dig.shape
+    dig = torch.nn.functional.pad(dig, (0, 0, 0, -(-B // rows) * rows - B))
+    out = torch.empty_like(fin)
+    ic1, ic2, f1, f2, e1, e2 = cuda_build.context_pointers(ctx)
+    err = lib.rns2_fixed_base_launch(
+        tbl16.data_ptr(), dig.contiguous().data_ptr(), D, fin.data_ptr(),
+        ic1.data_ptr(), ic2.data_ptr(), f1.data_ptr(), f2.data_ptr(),
+        e1.data_ptr(), e2.data_ptr(), out.data_ptr(), B, ctx.k, 4, rows,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: cudaError {err}")
@@ -181,6 +202,19 @@ class Shapes:
                 yield (f"B2 {label} rows={B}", eng,
                        self.residues(B, eng.spec.k), self.digits(B, bits))
 
+    def b3_shapes(self, rows, wide_rows):
+        """(label, eng, int16 comb table, per-row digits, fin) at k = 320
+        and 512: 256 digits of r < 2^1024."""
+        for label, N, counts in (("k=320", self.n ** 2, rows),
+                                 ("k=512", self.n ** 3, wide_rows)):
+            eng = Rns2Engine(N, device=self.dev)
+            table = build_fixed_base_table(eng, self.rng.randrange(2, N),
+                                           256, 4).to(torch.int16)
+            for B in counts:
+                yield (f"B3 {label} rows={B} 256 digits fin", eng, table,
+                       self.digits(B, 1024).to(torch.int32),
+                       self.residues(B, eng.spec.k))
+
     def b4_shapes(self, rows, wide_rows):
         """(label, ctx, base limbs, digits): a shared 2048-bit exponent at
         L = 128 on each of ``rows`` and at L = 256 on each of
@@ -232,6 +266,16 @@ def mode_b2(a, sh, dev):
               lib.rns2_modexp_rows(x.shape[0], eng.spec.k))
 
 
+def mode_b3(a, sh, dev):
+    lib = fb.load()
+    for label, eng, tbl16, dig, fin in sh.b3_shapes(a.rows, a.wide_rows):
+        tiles = (8, 16, 32) if eng.spec.k <= 320 else (8, 16)
+        sweep(label, {R: (lambda R=R: run_b3(lib, eng.ctx, tbl16, dig, fin,
+                                             R))
+                      for R in tiles},
+              lib.rns2_fixed_base_rows(dig.shape[0], eng.spec.k))
+
+
 def mode_b4(a, sh, dev):
     lib = mk.load()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -247,13 +291,15 @@ def mode_b4(a, sh, dev):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("b1", "b2", "b4"), default="b1")
+    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4"),
+                    default="b1")
     ap.add_argument("--rows", type=ints, default=None)
     ap.add_argument("--wide-rows", type=ints, default=None)
     a = ap.parse_args()
     a.rows = a.rows or {
         "b1": [512, 1024, 1536, 2048, 2112, 2560, 3072, 4096, 8192],
         "b2": [1024, 1056, 2048, 2112, 3072, 4096, 8192],
+        "b3": [1024, 1056, 2048, 2112, 3072, 4096, 8192],
         "b4": [512, 768, 1024, 1280, 1536, 1792, 2048, 2560, 3072, 3584,
                4096, 5120, 6144, 8192]}[a.kernel]
     a.wide_rows = a.wide_rows or (
@@ -263,7 +309,8 @@ def main() -> None:
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
     sh = Shapes(dev)
-    {"b1": mode_b1, "b2": mode_b2, "b4": mode_b4}[a.kernel](a, sh, dev)
+    {"b1": mode_b1, "b2": mode_b2, "b3": mode_b3,
+     "b4": mode_b4}[a.kernel](a, sh, dev)
     print(f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 

@@ -1,8 +1,8 @@
 """Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu), B2
 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
 (csrc/limb_modexp.cu) and what surrounds them: the wrappers' checks, the
-__dp4a and tensor-core matrix packings, the build hash, the launch
-counters and the entry points' default device.  This
+tensor-core matrix packing, B3's comb entry copies, the build hash, the
+launch counters and the entry points' default device.  This
 file imports no JAX, so its GPU tests also run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -44,32 +44,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("kernels B1-B4 are CUDA C++: need an NVIDIA GPU and nvcc")
     return torch.device("cuda")
-
-
-def test_pack_dp4a_layout():
-    """Word (q, j) holds rows 4q..4q+3 of column j, byte t = row 4q+t."""
-    rng = np.random.default_rng(4)
-    C = 128
-    e = rng.integers(-128, 128, size=(C, C), dtype=np.int64)
-    packed = cuda_build.pack_dp4a(torch.as_tensor(e, dtype=torch.int8)).numpy()
-    assert packed.shape == (C // 4, C) and packed.dtype == np.int32
-    raw = packed.view(np.uint32)
-    for t in range(4):
-        byte = ((raw >> (8 * t)) & 0xFF).astype(np.int64)
-        assert np.array_equal(np.where(byte > 127, byte - 256, byte),
-                              e[t::4, :])
-    # a dp4a product of packed words is the int8 matrix product
-    lhs = rng.integers(-128, 128, size=(3, C), dtype=np.int64)
-    lw = lhs.astype(np.int8).view(np.int32)          # [3, C/4] words
-    acc = np.zeros((3, C), np.int64)
-    for q in range(C // 4):
-        for t in range(4):
-            a = (lw[:, q:q + 1].view(np.uint32) >> (8 * t)) & 0xFF
-            a = np.where(a > 127, a.astype(np.int64) - 256, a)
-            b = (raw[q] >> (8 * t)) & 0xFF
-            b = np.where(b > 127, b.astype(np.int64) - 256, b)
-            acc += a * b[None, :]
-    assert np.array_equal(acc, lhs @ e)
 
 
 def _mma_emulate(packed, lhs, k, c=None):
@@ -146,6 +120,51 @@ def test_pack_mma_layout(k):
     assert np.array_equal(want, lhs.numpy().astype(np.int64)
                           @ e.numpy().astype(np.int64))
     assert np.array_equal(_mma_emulate(packed.numpy(), lhs.numpy(), k), want)
+
+
+def _tbl_fetch(tbl, dig, step, R, k, T, threads):
+    """Kernel B3's copy of comb step ``step`` as rns2_mont_mma.cuh's
+    tbl_fetch<R> runs it, in numpy: tbl_fetch(cx, o1, o2, tbl + step T 2k,
+    rs = 0, dig + step, ds = D) over a block of ``threads`` threads, each
+    copy 8 int16.  Returns the two [R k] operand halves and how often each
+    element was written."""
+    D = dig.shape[1]
+    flat_tbl, flat_dig = tbl.reshape(-1), dig.reshape(-1)
+    half = k // 8
+    o = np.full((2, R * k), -1, np.int64)
+    writes = np.zeros((2, R * k), np.int64)
+    for tid in range(threads):
+        for q in range(tid, R * 2 * half, threads):
+            r = q // (2 * half)
+            j = q - r * 2 * half
+            h = int(j >= half)
+            d = flat_dig[step + r * D]
+            dst = r * k + 8 * (j - h * half)
+            src = step * T * 2 * k + d * 2 * k + 8 * j
+            assert dst % 8 == 0 and src % 8 == 0        # 16-byte aligned
+            o[h, dst:dst + 8] = flat_tbl[src:src + 8]
+            writes[h, dst:dst + 8] += 1
+    return o, writes
+
+
+@pytest.mark.parametrize("k", [64, 320, 512])
+@pytest.mark.parametrize("R", [8, 16, 32])
+def test_comb_fetch_layout(R, k):
+    """Kernel B3's 16-byte copies of each row's comb entry: for random
+    per-row digits, every step fills tile row r's operand [R][k] per base
+    with exactly table[step 2^w + d_r], each element written once, every
+    copy 16-byte aligned."""
+    rng = np.random.default_rng(R * 1000 + k)
+    D, T = 5, 16
+    tbl = rng.integers(0, 1 << 14, size=(D * T, 2 * k))
+    dig = rng.integers(0, T, size=(R, D))
+    dig[-1] = 0                         # a zero-padded row
+    for step in range(D):
+        o, writes = _tbl_fetch(tbl, dig, step, R, k, T, threads=2 * k)
+        assert (writes == 1).all()
+        want = tbl[step * T + dig[:, step]]                 # [R, 2k]
+        assert np.array_equal(o[0].reshape(R, k), want[:, :k])
+        assert np.array_equal(o[1].reshape(R, k), want[:, k:])
 
 
 def test_wrapper_checks(eng256_cpu):
@@ -262,9 +281,7 @@ def test_b2_cpu_tensor_takes_plain_version(eng256_cpu, per_row):
 def test_build_hash_covers_included_headers(tmp_path):
     """An edit of a header that a kernel source includes changes the
     build's name, so a stale library is never loaded."""
-    files = cuda_build.source_files(cuda_build.CSRC / "rns2_fixed_base.cu")
-    assert [f.name for f in files] == ["rns2_fixed_base.cu", "rns2_mont.cuh"]
-    for name in ("rns2_sliding.cu", "rns2_modexp.cu"):
+    for name in ("rns2_sliding.cu", "rns2_modexp.cu", "rns2_fixed_base.cu"):
         assert [f.name for f in cuda_build.source_files(
             cuda_build.CSRC / name)] == [
             name, "rns2_mont_mma.cuh", "rns2_mont.cuh"]
@@ -688,20 +705,29 @@ def test_level2_and_homomorphic_on_cuda(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bits,rows,fin", [(256, 13, True), (4096, 9, False),
-                                           (6144, 5, True)])
-def test_kernel_b3_matches_plain_on_cuda(cuda_device, bits, rows, fin):
-    """Kernel B3 against the plain comb at k = 64, 320 and 512, with and
-    without fin, a ragged last tile and zero digits: bit-identical and
-    equal to Python's pow."""
-    rng = random.Random(bits + 3)
+@pytest.mark.parametrize("bits,rows,tile,e_bits,fin", [
+    (256, 13, 8, 64, True), (256, 5, 8, 4, False), (256, 9, 8, 8, True),
+    (4096, 9, 8, 60, False), (4096, 1055, 8, 64, True),
+    (4096, 1063, 16, 60, False), (4096, 2143, 32, 64, True),
+    (6144, 5, 8, 64, True), (6144, 1039, 16, 60, False),
+    (8192, 37, 8, 64, True), (8192, 1039, 16, 60, False)])
+def test_kernel_b3_matches_plain_on_cuda(cuda_device, bits, rows, tile,
+                                         e_bits, fin):
+    """Kernel B3 against the plain comb at k = 64, 320, 512 and 704, with
+    tiles of 8, 16 and 32 rows, each picked by the launcher's rule (row
+    counts chosen for an H100's 132 SMs), ragged last tiles, 1, 2, 15 and
+    16 digits, with and without fin, and zero digits: bit-identical, one
+    launch, and the first 65 rows equal to Python's pow."""
+    rng = random.Random(bits + rows + e_bits)
     n = _odd(rng, bits)
     eng = tr.Rns2Engine(n, device=cuda_device)
-    assert eng.spec.k == {256: 64, 4096: 320, 6144: 512}[bits]
+    assert eng.spec.k == {256: 64, 4096: 320, 6144: 512, 8192: 704}[bits]
+    assert fb.load().rns2_fixed_base_rows(rows, eng.spec.k) == tile, \
+        "the row counts are chosen for an H100 (132 SMs)"
     base = rng.randrange(2, n)
-    es = [rng.getrandbits(64) for _ in range(rows - 1)] + [0]
+    es = [rng.getrandbits(e_bits) for _ in range(rows - 1)] + [0]
     fs = [rng.randrange(n) for _ in range(rows)] if fin else [1] * rows
-    nd = n_digits_for_bits(64, 4)
+    nd = n_digits_for_bits(e_bits, 4)
     dig = torch.as_tensor(np.stack([exp_digits(e, 4, nd) for e in es]),
                           device=cuda_device)
     table = tr.build_fixed_base_table(eng, base, nd, 4)
@@ -711,8 +737,10 @@ def test_kernel_b3_matches_plain_on_cuda(cuda_device, bits, rows, fin):
     want = tr.rns2_pow_fixed_base_plain(eng.ctx, table, dig, 4, fin=f)
     assert fb.rns2_pow_fixed_base_b3.launches == before + 1
     assert torch.equal(got, want)
-    assert eng.decode(got) == [pow(base, e, n) * v % n
-                               for e, v in zip(es, fs)]
+    m = min(rows, 65)              # Python's pow on the first rows only
+    rows_pow = list(range(m - 1)) + [rows - 1]          # the zero exponent
+    assert eng.decode(got[rows_pow]) == [pow(base, es[i], n) * fs[i] % n
+                                         for i in rows_pow]
 
 
 @pytest.mark.cuda
