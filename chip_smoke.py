@@ -48,6 +48,13 @@ non-zero):
                 Fermat batch: 32 digits against plain, all 256 against
                 pow); each prints its lanes per row and us per Montgomery
                 product.
+                The threshold path's shapes: B1 at k = 320 with a
+                4,100-bit exponent (partial decryption's 2*delta*s_i; 33
+                rows against plain and pow, 4096 timed); B2 on the 12,288
+                stacked rows of combine's Lagrange ladder, 4 per-row
+                digits; B4 at L = 256 (mod n^2) on 5 rows with per-row
+                1,025-digit exponents (the verification keys; 32 digits
+                against plain, all against pow).
                 Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
@@ -83,18 +90,34 @@ non-zero):
                 against its plain version at that shape; fails if a probe
                 runs faster than its bound, the least work of its function
                 (a folded loop).
-Phases 4-9 each set the launch counters to 0 just before their
+ 10. threshold -- bench.py's (3, 5)-threshold configuration at 2048 bits:
+                ThresholdKeyGenerator(2048, 5, 3, random.Random(0x7357))
+                .generate_from_primes on bench.py's fixed safe primes (the
+                5 verification keys on B4, equal to pow); 4096 plaintexts
+                encrypted under the threshold key, partial_decrypt_all
+                of servers 1-3 (3 B1) and combine (1 B2): all round-trip,
+                8 rows equal combine_ints; threshold dec/s and the
+                seconds of each step (B1 ladders; combine's Lagrange
+                ladder, residue trees, modinv_batch, tail); then
+                partial_decrypt_with_zkp of servers 1-3 on the same 4096
+                (1 B1 + 2 B2 each), verify_proofs of each (4 B2), a
+                tampered proof that must fail, combine_with_zkp giving the
+                plaintexts; the SHA-256 challenges timed apart.
+Phases 4-10 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3 and B4 launches differ from the exact count its entry
 points make fails (the prime search's B4 count is the number of Fermat
-batches it reports), and phase 9 fails unless every probe kernel
-launched.  Then one JSON line describing the kernels,
-the card's name and power limit, and as the last line
+batches it reports; phase 10: keys B4 1, partial decryption B1 3,
+combine B2 1, the proofs B1 3 and B2 35), and phase 9 fails unless
+every probe kernel launched.  Then a line of the threshold shapes'
+bounds, one JSON line describing the kernels, the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
@@ -111,6 +134,19 @@ KEY_BITS = 2048
 SEED = 2048
 WARM_ROWS = 64         # rows of the untimed first encrypt / decrypt
 HOST_ROWS = 8          # rows checked against the host formula
+THR_E_BITS = 4100      # partial decryption's 2*delta*s_i at 2048 bits
+THR_SEED = 0x7357      # bench.py's threshold configuration: its rng seed
+# and its fixed 1024-bit safe primes p = 2p' + 1 (bench.py:49-50)
+SAFE_P1024 = int(
+    "e422c56ca3c0f2d84f17306861a0b801cb6994fcccff85a797b18be4c14226fa"
+    "77c2440b48dee0efa7aea10bab5a2a9a1fcd1095a4c221b3825c2dce2facd955"
+    "c13c370de6c6d15cf850e4b47c52c83698afd26add3ae25953424839b657675a"
+    "c2b3ec41729024ce3bfaf62c197377cb44a93f532b80d9040096f8c08ff7eb73", 16)
+SAFE_Q1024 = int(
+    "c35701846e378ba4ace9de4018b37137cc090f0fc2056b78502e38abe63cccb0"
+    "efba37e3f16a8dcc12b9f655179794558fe416b9b5cf8d558e501a8226a3f4c8"
+    "ed7d4a01d4038dc1d762f93bff23a33ec2604eb75afc06faefe359c44f20468c"
+    "252742b742f10f07f075d57371d9b529bcab6a801db5c2e7324c7e905f12f807", 16)
 
 
 def fail(msg: str) -> None:
@@ -185,6 +221,15 @@ def main() -> None:
     from paillier_tpu_torch.core import keygen as kg_mod
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
+    from paillier_tpu_torch.threshold import (PartialDecryption,
+                                              ThresholdKeyGenerator, combine,
+                                              combine_ints, combine_with_zkp,
+                                              compute_lambda,
+                                              partial_decrypt_all,
+                                              partial_decrypt_with_zkp,
+                                              verify_proof, verify_proofs)
+    from paillier_tpu_torch.threshold import decrypt as thr_dec
+    from paillier_tpu_torch.threshold import zkp as thr_zkp
     from paillier_tpu_torch import probes
     from paillier_tpu_torch.probes import __main__ as probe_cli
     from paillier_tpu_torch.probes import dotchain as pr_dotchain
@@ -433,6 +478,34 @@ def main() -> None:
           f"{b1_tile(eng_n2, BATCH, sched, b1_ms)}")
     b1_other_fin(eng_n2, False)
 
+    # B1 at the threshold path's shape: partial decryption's shared
+    # exponent 2*delta*s_i (~4,100 bits) at k = 320; 33 rows against plain
+    # and pow, then BATCH rows timed
+    e_thr = rng.getrandbits(THR_E_BITS) | (1 << (THR_E_BITS - 1))
+    sched_thr = sliding_window_schedule(e_thr, 6)
+    xs = [rng.randrange(1, pk.n2) for _ in range(BATCH)]
+    x = residues(eng_n2, xs)
+    got, _, _ = compare(
+        "B1", lambda: b1(eng_n2.ctx, x[:33], sched_thr, 6),
+        lambda: b1_plain(eng_n2.ctx, x[:33], sched_thr, 6),
+        f"k={eng_n2.spec.k} rows=33 e={THR_E_BITS}-bit")
+    check_pow(eng_n2, xs, [e_thr] * 4, [1] * 4, got, 4, "B1 4100-bit e")
+    b1(eng_n2.ctx, x[:64], sched_thr, 6)                           # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    b1(eng_n2.ctx, x, sched_thr, 6)
+    ev[1].record()
+    torch.cuda.synchronize()
+    thr_ms = {"B1": ev[0].elapsed_time(ev[1])}
+    stats["B1"]["times"].append({"shape": f"k={eng_n2.spec.k} rows={BATCH} "
+                                 f"e={THR_E_BITS}-bit (no plain run)",
+                                 "ms": thr_ms["B1"], "plain_ms": None})
+    phase("kernel", f"B1 k={eng_n2.spec.k}, {THR_E_BITS}-bit e (partial "
+          f"decryption's 2*delta*s_i; {len(sched_thr) - 1} steps): 33 rows "
+          f"bit-identical to plain and to pow; {BATCH} rows "
+          f"{thr_ms['B1']:.3f} ms, "
+          f"{b1_tile(eng_n2, BATCH, sched_thr, thr_ms['B1'])}")
+
     p2 = skey.p * skey.p
     eng_p2 = Rns2Engine(p2, device=dev)
     xs = [rng.randrange(1, p2) for _ in range(BATCH)]
@@ -513,6 +586,27 @@ def main() -> None:
           f"digits: bit-identical to plain and to pow; kernel "
           f"{b2_ms:.3f} ms, plain {b2_plain_ms:.3f} ms; "
           f"{b2_tile(eng_n2, BATCH, nd, b2_ms)}")
+
+    # B2 at the threshold path's shape: combine's Lagrange ladder over the
+    # 3 servers' stacked rows, each row the 4 digits of its server's
+    # |2 lambda| (servers {1, 2, 3} of l = 5: 720, 720, 240)
+    rows = 3 * BATCH
+    xs = [rng.randrange(1, pk.n2) for _ in range(rows)]
+    x = residues(eng_n2, xs)
+    es = [v for v in (720, 720, 240) for _ in range(BATCH)]
+    per = torch.as_tensor(np.stack([exp_digits(v, 4, 4) for v in es]),
+                          device=dev)
+    got, ms, plain_ms = compare(
+        "B2", lambda: b2(eng_n2.ctx, x, per, 4),
+        lambda: b2_plain(eng_n2.ctx, x, per, 4),
+        f"k={eng_n2.spec.k} rows={rows} per-row 4 digits", warm=True)
+    check_pow(eng_n2, xs[::BATCH], es[::BATCH], [1] * 3, got[::BATCH], 3,
+              "B2 stacked rows")
+    thr_ms["B2"] = ms
+    phase("kernel", f"B2 k={eng_n2.spec.k}, {rows} stacked rows, per-row 4 "
+          f"digits (the Lagrange ladder): bit-identical to plain and to "
+          f"pow; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"{b2_tile(eng_n2, rows, 4, ms)}")
 
     mrng = random.Random(SEED + 3)
     c1 = Encryptor(pk, device=dev, rng=mrng).encrypt(
@@ -644,8 +738,40 @@ def main() -> None:
     phase("kernel", f"B4 L={Lh}, 64 per-row moduli and per-row digits: "
           f"32 digits bit-identical to plain and to pow; "
           f"{dig.shape[-1]} digits {ms:.3f} ms, equal to pow; "
-          f"{b4_shape(Lh, 64, dig.shape[-1], ms)} "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"{b4_shape(Lh, 64, dig.shape[-1], ms)}")
+    # B4 at L = 256 (mod n^2): the threshold verification keys' ladder, 5
+    # rows with per-row 1,025-digit exponents; 32 digits against plain,
+    # all against pow
+    ctx_n2 = make_mont_ctx(pk.n2, device=dev)
+    L4 = ctx_n2.n_limbs
+    xs5 = [rng.randrange(pk.n2) for _ in range(5)]
+    es5 = [rng.getrandbits(THR_E_BITS) | (1 << (THR_E_BITS - 1))
+           for _ in range(5)]
+    nd5 = n_digits_for_bits(THR_E_BITS, 4)
+    dig5 = torch.as_tensor(np.stack([exp_digits(e, 4, nd5) for e in es5]),
+                           device=dev)
+    xl5 = limbs(xs5, L4)
+    got, _, _ = compare("B4", lambda: b4(ctx_n2, xl5, dig5[:, -32:], 4),
+                        lambda: b4_plain(ctx_n2, xl5, dig5[:, -32:], 4),
+                        f"L={L4} rows=5 per-row, 32 digits")
+    check_limbs(got, xs5, [e % (1 << 128) for e in es5], [pk.n2] * 5, 5,
+                "B4 L=256, 32 digits")
+    b4(ctx_n2, xl5, dig5, 4)                                       # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = b4(ctx_n2, xl5, dig5, 4)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    check_limbs(got, xs5, es5, [pk.n2] * 5, 5, "B4 L=256 full e")
+    thr_ms["B4"] = ms
+    stats["B4"]["times"].append({"shape": f"L={L4} rows=5 per-row {nd5} "
+                                 f"digits (no plain run)", "ms": ms,
+                                 "plain_ms": None})
+    phase("kernel", f"B4 L={L4}, 5 rows, per-row {nd5} digits (the "
+          f"threshold verification keys): 32 digits bit-identical to plain "
+          f"and to pow, all {nd5} equal to pow; {ms:.3f} ms; "
+          f"{b4_shape(L4, 5, nd5, ms)} ({time.perf_counter() - t0:.1f} s)")
     del got, xl
 
     launches = {kname: 0 for kname in wrappers}
@@ -1030,6 +1156,129 @@ def main() -> None:
     phase("probes", "full shapes bit-identical to plain; plain ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in probe_plain_ms.items())
           + f" ({time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 10. threshold: bench.py's (3, 5)-threshold configuration ----------
+    t0 = time.perf_counter()
+    p_, q_ = SAFE_P1024, SAFE_Q1024
+    gen = ThresholdKeyGenerator(KEY_BITS, 5, 3, random.Random(THR_SEED),
+                                device=dev)
+    # the verification keys: one B4 ladder mod n^2 (L = 256) on 5 rows
+    tkeys, t_kg = run_path("threshold", lambda: gen.generate_from_primes(
+        p_, (p_ - 1) // 2, q_, (q_ - 1) // 2), {"B4": 1})
+    tpk = tkeys[0].public()
+    if tpk.vi != tuple(pow(tpk.v, tpk.delta * k.share, tpk.n2)
+                       for k in tkeys):
+        fail("threshold verification keys != v^(delta * s_i) mod n^2")
+    trng = random.Random(THR_SEED + 1)
+    tms = [trng.randrange(tpk.n) for _ in range(BATCH)]
+    tct = Encryptor(tpk, device=dev, rng=trng).encrypt(tms)
+    warm = Ciphertext(c=tct.c[:WARM_ROWS])
+    if combine(tpk, partial_decrypt_all(tkeys[:3], warm)) != tms[:WARM_ROWS]:
+        fail("threshold warm-up did not decrypt")
+    dk_t = tpk.device(dev)
+    phase("threshold", f"keys (generate_from_primes, {KEY_BITS} bits, "
+          f"l = 5, t = 3) in {t_kg:.3f} s, the 5 verification keys equal "
+          f"pow; {BATCH} encryptions and a {WARM_ROWS}-row warm-up "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    def thr_ops():
+        # one B1 ladder a server; combine: one B2 ladder over the 3
+        # servers' stacked rows
+        shares = timed("partial_decrypt_all",
+                       lambda: partial_decrypt_all(tkeys[:3], tct), 3)
+        return shares, timed("combine", lambda: combine(tpk, shares), 0, 1)
+
+    (shares, tout), t_thr = run_path("threshold", thr_ops,
+                                     {"B1": 3, "B2": 1})
+    thr_line = op_line()
+    if tout != tms:
+        bad = sum(a != b for a, b in zip(tout, tms))
+        fail(f"{bad} of {BATCH} threshold decryptions != their plaintext")
+    for j in range(HOST_ROWS):
+        parts = [PartialDecryption(s.id, decode_batch(s.c[j:j + 1])[0])
+                 for s in shares]
+        if combine_ints(tpk, parts) != tout[j]:
+            fail("threshold combine != combine_ints on the host")
+
+    def thr_steps():
+        # combine step by step (its pieces, as combine runs them)
+        ids = [s.id for s in shares]
+        lam2 = [2 * compute_lambda(tpk, i, ids) for i in ids]
+        stacked = torch.stack([s.c for s in shares])
+        powed = timed("Lagrange ladder", lambda: thr_dec.lagrange_powers(
+            tpk, stacked, [abs(v) for v in lam2]), 0, 1)
+        sel = torch.tensor([v > 0 for v in lam2], device=dev)[:, None, None]
+        pos, neg = timed("residue trees",
+                         lambda: thr_dec._combine_products(dk_t, powed, sel))
+        neg_inv = timed("modinv_batch", lambda: encode_batch(
+            bhost.modinv_batch(decode_batch(neg), tpk.n2), 2 * dk_t.L,
+            device=dev))
+        return timed("tail", lambda: thr_dec._combine_tail(dk_t, tpk, pos,
+                                                           neg_inv))
+
+    m_steps, _ = run_path("threshold", thr_steps, {"B2": 1})
+    if decode_batch(m_steps) != tms:
+        fail("combine's steps != combine")
+    phase("threshold", f"{BATCH} x {KEY_BITS}-bit (3, 5)-threshold "
+          f"decryptions: {t_thr:.4f} s, {BATCH / t_thr:.1f} threshold dec/s "
+          f"({card}); seconds: {thr_line}; combine's steps: {op_line()}; "
+          f"all {BATCH} round-trip, {HOST_ROWS} equal combine_ints")
+
+    # share-decryption proofs of servers 1-3 on the same ciphertexts; the
+    # hashes (limb bytes, concatenation, SHA-256) timed apart
+    hash_s = []
+    challenges = thr_zkp._zkp_challenges
+
+    def timed_challenges(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = challenges(*args)
+        hash_s.append(time.perf_counter() - t)
+        return out
+
+    thr_zkp._zkp_challenges = timed_challenges
+    zrng = random.Random(THR_SEED + 2)
+
+    def zkp_ops():
+        # a proof batch: one B1 (the partial decryption) and two B2 (the
+        # commitments); a verification: four B2
+        proofs = [timed(f"prove {k.id}",
+                        lambda k=k: partial_decrypt_with_zkp(k, tct, zrng),
+                        1, 2) for k in tkeys[:3]]
+        oks = [timed(f"verify {ps[0].id}",
+                     lambda ps=ps: verify_proofs(ps, device=dev), 0, 4)
+               for ps in proofs]
+        bad = [dataclasses.replace(proofs[0][0], e=proofs[0][0].e ^ 1)] \
+            + proofs[0][1:HOST_ROWS]
+        bad_ok = timed("verify tampered", lambda: verify_proofs(
+            bad, device=dev), 0, 4)
+        comb = timed("combine_with_zkp", lambda: combine_with_zkp(
+            tpk, proofs, device=dev), 0, 13)
+        return proofs, oks, bad_ok, comb
+
+    (proofs, oks, bad_ok, zout), t_zkp = run_path(
+        "threshold", zkp_ops, {"B1": 3, "B2": 35})
+    thr_zkp._zkp_challenges = challenges
+    zkp_line = op_line()
+    if not all(all(o) for o in oks):
+        fail("a share-decryption proof did not verify")
+    if bad_ok != [False] + [True] * (HOST_ROWS - 1):
+        fail(f"tampered proof batch verified as {bad_ok}")
+    if zout != tms:
+        fail("combine_with_zkp != the plaintexts")
+    host_rows = [ps[j] for j in range(3) for ps in proofs][:HOST_ROWS]
+    if not all(verify_proof(p) for p in host_rows):
+        fail("a proof fails verify_proof on the host")
+    if any(p.decryption != decode_batch(s.c[j:j + 1])[0]
+           for s, ps in zip(shares, proofs) for j, p in enumerate(ps[:4])):
+        fail("the proofs' partial decryptions != partial_decrypt_all's")
+    phase("threshold", f"proofs of servers 1-3 on {BATCH}: seconds "
+          f"{zkp_line}; SHA-256 challenges (bytes, concatenation, hash) "
+          f"{sum(hash_s):.4f} s in {len(hash_s)} batches (each "
+          + ", ".join(f"{v:.4f}" for v in hash_s) + "); every proof "
+          f"verifies, the tampered one fails, {HOST_ROWS} verify on the "
+          f"host, combine_with_zkp gives the plaintexts ({t_zkp:.2f} s; "
+          f"{time.perf_counter() - t0:.1f} s in all)")
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- bounds: the least time the card could take for each timed call ----
@@ -1068,6 +1317,22 @@ def main() -> None:
     b4_mults = 16 + 1 + 32 * 5
     b4_bound = bound(b4_mults * BATCH * (2 * nw * nw + nw) / MAC32,
                      BATCH * dk.L * 8 * 2 + 32 * 4 + 3 * dk.L * 8)
+
+    # the threshold path's shapes (phase 3): B1 with the 4,100-bit
+    # exponent on BATCH rows, B2 on the 3 x BATCH stacked rows with 4
+    # digits, B4 at L = 256 on 5 rows with 1,025 digits
+    thr_b1 = 32 + 1 + int((sched_thr[1:] >= -1).sum()) + \
+        int((sched_thr[1:] >= 0).sum()) + 1
+    nw4 = L4 // 2
+    thr_bounds = {
+        "B1": rns_bound(thr_b1, BATCH, k1, 2 * BATCH * C1 * 4),
+        "B2": rns_bound(1 + 14 + 4 * 5 + 1, 3 * BATCH, k1,
+                        3 * BATCH * (2 * C1 * 4 + 4 * 4)),
+        "B4": bound((16 + 5 * nd5 + 1) * 5 * (2 * nw4 * nw4 + nw4) / MAC32,
+                    5 * L4 * 8 * 2 + 5 * nd5 * 4 + 3 * L4 * 8)}
+    phase("bounds", "threshold shapes (ms, share of bound): " + ", ".join(
+        f"{kn} {thr_ms[kn]:.3f} against {b[0]:.4f} by {b[1]} "
+        f"({100 * b[0] / thr_ms[kn]:.2f}%)" for kn, b in thr_bounds.items()))
 
     def entry(kname, name, source, replaces, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source,

@@ -10,7 +10,9 @@ and alternative encryption at levels 1 and 2 and nested encryption,
 generic decryption at levels 1 and 2, CRT decryption at level 1 and
 nested decryption, the homomorphic operations (``homomorphic.add``,
 ``sub``, ``const_mult``, ``randomize``, ``aggregate``,
-``aggregate_streaming``, the nested ones) and ``extract_randomness``, on
+``aggregate_streaming``, the nested ones), ``extract_randomness`` and
+(t, l)-threshold Paillier (:mod:`.threshold`: keys, partial decryption,
+combining, the share-decryption proofs with a batched SHA-256), on
 the CPU (plain torch) or on a CUDA device (kernels B1-B4, built from
 ``csrc/`` with nvcc at first use).  The names are the JAX package's.
 Entry points that make ciphertexts take an explicit ``device``; the
@@ -29,6 +31,7 @@ device prime search runs on the card unless given ``device="cpu"``.
 
 from .bigint import host, montgomery, vpu
 from .config import Config, get_config, set_config
+from . import threshold
 from .core import homomorphic
 from .core.decrypt import Decryptor, decrypt_nested_layer, nested_decrypt
 from .core.encrypt import Encryptor, nested_encrypt
@@ -38,7 +41,7 @@ from .core.keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
                         SecretKey, decode_batch, encode_batch)
 
 __all__ = ["host", "montgomery", "vpu", "Config", "get_config", "set_config",
-           "homomorphic", "Decryptor", "decrypt_nested_layer",
+           "threshold", "homomorphic", "Decryptor", "decrypt_nested_layer",
            "nested_decrypt", "Encryptor", "nested_encrypt",
            "device_batched_prime", "keygen",
            "ALTERNATIVE", "DEFAULT_LEVEL", "LEVEL_ONE", "LEVEL_TWO", "MIXED",

@@ -199,16 +199,19 @@ def modinv_batch(values: Sequence[int], mod: int, threads: int = 0) -> list:
             for i in range(len(values))]
 
 
-def first_prime(cands: Sequence[int], *, reps: int = 20,
+def first_prime(cands: Sequence[int], *, safe: bool = False, reps: int = 20,
                 threads: int = 0) -> Optional[int]:
-    """Index of the first candidate that passes GMP's primality test, or
-    None.  Deterministic: the result depends only on the candidate list,
-    not on the thread count."""
+    """Index of the first candidate that passes the primality filter, or
+    None.  ``safe=True`` takes each candidate as a Sophie Germain q and
+    asks 2q+1 to be prime too (sieve, q % 3 != 1, BPSW / Miller-Rabin,
+    Fermat base 2; reference safe_prime.go:208-278).  Deterministic: the
+    result depends only on the candidate list, not on the thread count."""
     if not cands:
         return None
     lib = _require()
     width = max(1, max((c.bit_length() + 7) // 8 for c in cands))
     flat = b"".join(_be(c, width) for c in cands)
     threads = threads or (os.cpu_count() or 1)
-    idx = lib.pt_first_prime(_buf(flat), len(cands), width, reps, 0, threads)
+    idx = lib.pt_first_prime(_buf(flat), len(cands), width, reps,
+                             1 if safe else 0, threads)
     return None if idx < 0 else int(idx)

@@ -2,7 +2,8 @@
 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
 (csrc/limb_modexp.cu) and what surrounds them: the wrappers' checks, the
 tensor-core matrix packing, B3's comb entry copies, the build hash, the
-launch counters and the entry points' default device.  This
+launch counters, the entry points' default device, and the threshold
+path's kernel shapes and its batched SHA-256 on the card.  This
 file imports no JAX, so its GPU tests also run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -874,6 +875,134 @@ def test_alt_extract_and_prime_search_on_cuda(cuda_device):
     assert p.bit_length() == 256 and p % 4 == 3 and host.is_probable_prime(p)
     assert mk.mont_pow_b4.launches - b4 == \
         kg.device_batched_prime.batches - batches > 0
+
+
+# -- the threshold path's shapes (paillier_tpu_torch/threshold) -----------
+
+@pytest.mark.cuda
+def test_kernel_b1_threshold_exponent_on_cuda(cuda_device):
+    """Kernel B1 at k = 320 on 33 rows with a 4,100-bit shared exponent
+    (partial decryption's 2*delta*s_i at 2048 bits), in 8-row tiles:
+    bit-identical to the plain ladder and equal to Python's pow."""
+    rng = random.Random(4100)
+    eng = tr.Rns2Engine(_odd(rng, 4096), device=cuda_device)
+    assert eng.spec.k == 320
+    _b1_against_plain(eng, rng, 33, 4100, False, 8)
+
+
+@pytest.mark.cuda
+def test_kernel_b2_stacked_lagrange_rows_on_cuda(cuda_device):
+    """Kernel B2 on the 12,288 stacked rows of combine's Lagrange ladder
+    at k = 320 (3 servers x 4096 ciphertexts, above the 1024-8192 rows of
+    the tile sweeps; the launcher's rule takes 32-row tiles), with each
+    server's 4 digits of |2 lambda| per row and with 4 shared digits:
+    bit-identical to the plain ladder, one launch each, and equal to
+    Python's pow on rows of each server."""
+    rng = random.Random(12288)
+    n = _odd(rng, 4096)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    rows = 3 * 4096
+    assert mx.load().rns2_modexp_rows(rows, eng.spec.k) == 32, \
+        "the row count is chosen for an H100 (132 SMs)"
+    xs = [rng.randrange(n) for _ in range(rows)]
+    x = eng.from_limbs(torch.as_tensor(
+        host.ints_to_limbs(xs, 256).astype(np.int64), device=cuda_device))
+    lam2 = (720, 720, 240)              # servers {1, 2, 3} of l = 5
+    per = torch.as_tensor(np.repeat(np.stack(
+        [exp_digits(v, 4, 4) for v in lam2]), 4096, axis=0),
+        device=cuda_device)
+    check = [0, 4095, 4096, 8191, 8192, rows - 1]
+    for digits, es in ((per, [lam2[i // 4096] for i in check]),
+                       (per[-1], [lam2[-1]] * len(check))):
+        before = mx.rns2_pow_b2.launches
+        got = mx.rns2_pow_b2(eng.ctx, x, digits, 4)
+        assert mx.rns2_pow_b2.launches == before + 1
+        assert torch.equal(got, mx.rns2_pow_plain(eng.ctx, x, digits, 4))
+        assert eng.decode(got[check]) == [pow(xs[i], e, n)
+                                          for i, e in zip(check, es)]
+
+
+@pytest.mark.cuda
+def test_kernel_b4_verification_keys_on_cuda(cuda_device):
+    """Kernel B4 at L = 256 (n^2 of a 2048-bit key) on 5 rows with
+    per-row 1,025-digit exponents, the threshold verification keys'
+    shape (32 lanes a row): the last 32 digits bit-identical to the plain
+    ladder, all 1,025 equal to Python's pow."""
+    rng = random.Random(1025)
+    n2 = _odd(rng, 4096)
+    ctx = tmont.make_mont_ctx(n2, device=cuda_device)
+    assert ctx.n_limbs == 256 and mk.lanes_per_row(128, 5, 132) == 32
+    xs = [rng.randrange(n2) for _ in range(5)]
+    es = [rng.getrandbits(4100) | (1 << 4099) for _ in range(5)]
+    dig = torch.as_tensor(np.stack([exp_digits(e, 4, 1025) for e in es]),
+                          device=cuda_device)
+    x = torch.as_tensor(host.ints_to_limbs(xs, 256).astype(np.int64),
+                        device=cuda_device)
+    got = mk.mont_pow_b4(ctx, x, dig[:, -32:], 4)
+    assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig[:, -32:],
+                                                        4))
+    before = mk.mont_pow_b4.launches
+    got = mk.mont_pow_b4(ctx, x, dig, 4)
+    assert mk.mont_pow_b4.launches == before + 1
+    assert host.limbs_to_ints(got.cpu().numpy()) == [
+        pow(v, e, n2) for v, e in zip(xs, es)]
+
+
+@pytest.mark.cuda
+def test_sha256_on_cuda(cuda_device):
+    """The port's batched SHA-256 on CUDA tensors against hashlib, the
+    padding edges among the lengths."""
+    import hashlib
+    from paillier_tpu_torch.ops import sha256 as sha
+    rng = random.Random(256)
+    lens = [0, 1, 55, 56, 63, 64, 119, 120] + [rng.randrange(600)
+                                               for _ in range(24)]
+    msgs = [bytes(rng.getrandbits(8) for _ in range(n)) for n in lens]
+    data = torch.zeros((len(msgs), 600), dtype=torch.int64)
+    for i, m in enumerate(msgs):
+        data[i, :len(m)] = torch.tensor(list(m), dtype=torch.int64)
+    got = sha.sha256_bytes(data.to(cuda_device),
+                           torch.tensor(lens, device=cuda_device))
+    assert got.device.type == "cuda"
+    assert sha.digest_to_ints(got) == [
+        int.from_bytes(hashlib.sha256(m).digest(), "big") for m in msgs]
+
+
+@pytest.mark.cuda
+def test_threshold_on_cuda(cuda_device):
+    """(3, 5)-threshold at 512 bits on the card: the verification keys
+    (one B4 launch), partial_decrypt_all (a B1 launch a server), combine
+    (one B2 launch), a proof batch (one B1, two B2) and its verification
+    (four B2); plaintexts round-trip and the proofs verify."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch import threshold as thr
+
+    def counts():
+        return (sk.rns2_pow_sliding_b1.launches, mx.rns2_pow_b2.launches,
+                mk.mont_pow_b4.launches)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    c0 = counts()
+    keys = thr.ThresholdKeyGenerator(512, 5, 3, random.Random(5),
+                                     device=cuda_device).generate()
+    assert delta(c0) == (0, 0, 1)
+    tpk = keys[0].public()
+    assert tpk.vi == tuple(pow(tpk.v, tpk.delta * k.share, tpk.n2)
+                           for k in keys)
+    rng = random.Random(6)
+    ms = [rng.randrange(tpk.n) for _ in range(6)] + [0]
+    ct = pt.Encryptor(tpk, rng=rng, device=cuda_device).encrypt(ms)
+    c0 = counts()
+    shares = thr.partial_decrypt_all([keys[0], keys[2], keys[4]], ct)
+    assert thr.combine(tpk, shares) == ms
+    assert delta(c0) == (3, 1, 0)
+    c0 = counts()
+    proofs = thr.partial_decrypt_with_zkp(keys[1], ct, rng)
+    assert thr.verify_proofs(proofs, device=cuda_device) == [True] * 7
+    assert delta(c0) == (1, 6, 0)
+    assert all(thr.verify_proof(p) for p in proofs[:2])
 
 
 # -- probes P1-P5 (paillier_tpu_torch/probes, csrc/probe_*.cu) ------------
