@@ -55,6 +55,13 @@ non-zero):
                 digits; B4 at L = 256 (mod n^2) on 5 rows with per-row
                 1,025-digit exponents (the verification keys; 32 digits
                 against plain, all against pow).
+                DDLEQ's shapes on bench.py's chunk (128 proofs x secpar
+                40 = 5,120 rows): B1 and B2 at k = 256 (the prover's
+                p^3 half: y^(n^2 mod p^2(p-1)), 1,024 per-row digits)
+                against plain on all rows; the verifier's B1 (f^(n^2))
+                and B2 (1,024 digits) at k = 512 timed on all rows, 4
+                against pow (the same exponents run against plain above
+                at 1024 rows).
                 Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
@@ -103,15 +110,30 @@ non-zero):
                 (1 B1 + 2 B2 each), verify_proofs of each (4 B2), a
                 tampered proof that must fail, combine_with_zkp giving the
                 plaintexts; the SHA-256 challenges timed apart.
-Phases 4-10 each set the launch counters to 0 just before their
+ 11. ddleq   -- bench.py's ddleq configuration at 2048 bits (phase 4's
+                key): 128 nested encryptions, nested_randomize, a
+                warm-up prove + verify at secpar 40; a timed serial
+                chunk (prove B1 7, B2 8, B4 1; verify B1 2, B2 1) with
+                the hashes, random_units_limbs, modinv_batch and the
+                level-2 Decryptor of extract_randomness timed apart;
+                the p^3/q^3 split equals full width on 8 proofs; one
+                verification where a tampered f fails its proof only
+                and a proof against an unrelated nested ciphertext
+                fails; 8 instances pass the host formula;
+                then pipeline_prove_verify over two chunks (256 proofs,
+                seeds 0xDD1E0 + i): DDLEQ prove+verify/s with the
+                card's name and power limit.
+Phases 4-11 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3 and B4 launches differ from the exact count its entry
 points make fails (the prime search's B4 count is the number of Fermat
 batches it reports; phase 10: keys B4 1, partial decryption B1 3,
-combine B2 1, the proofs B1 3 and B2 35), and phase 9 fails unless
-every probe kernel launched.  Then a line of the threshold shapes'
-bounds, one JSON line describing the kernels, the card's name and power
-limit, and as the last line
+combine B2 1, the proofs B1 3 and B2 35; phase 11: the serial chunk
+B1 9, B2 9, B4 1, the checks B1 15, B2 14, B4 2, the pipeline B1 18,
+B2 18, B4 2), and phase 9 fails unless every probe kernel launched.
+Then lines of the threshold and DDLEQ shapes' bounds, one JSON line
+describing the kernels, the card's name and power limit, and as the
+last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -135,6 +157,10 @@ SEED = 2048
 WARM_ROWS = 64         # rows of the untimed first encrypt / decrypt
 HOST_ROWS = 8          # rows checked against the host formula
 THR_E_BITS = 4100      # partial decryption's 2*delta*s_i at 2048 bits
+DD_CHUNK = 128         # bench.py's ddleq configuration: proofs a chunk,
+DD_SECPAR = 40         # instances a proof,
+DD_CHUNKS = 2          # and chunks (256 proofs) in its pipeline
+DD_ROWS = DD_CHUNK * DD_SECPAR
 THR_SEED = 0x7357      # bench.py's threshold configuration: its rng seed
 # and its fixed 1024-bit safe primes p = 2p' + 1 (bench.py:49-50)
 SAFE_P1024 = int(
@@ -231,6 +257,9 @@ def main() -> None:
     from paillier_tpu_torch.threshold import decrypt as thr_dec
     from paillier_tpu_torch.threshold import zkp as thr_zkp
     from paillier_tpu_torch import probes
+    from paillier_tpu_torch.ops.oracle import oracle_bit
+    from paillier_tpu_torch.zk import ddleq as zd
+    from paillier_tpu_torch.zk.ddleq import DDLEQProof
     from paillier_tpu_torch.probes import __main__ as probe_cli
     from paillier_tpu_torch.probes import dotchain as pr_dotchain
     from paillier_tpu_torch.probes import dotvar as pr_dotvar
@@ -629,6 +658,71 @@ def main() -> None:
           f"comparisons B1 {stats['B1']['n']}, "
           f"B2 {stats['B2']['n']}, max |diff| "
           f"{max(stats['B1']['err'], stats['B2']['err'])} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del x, got
+
+    # B1 and B2 at DDLEQ's shapes (bench.py's ddleq chunk: 128 proofs x
+    # secpar 40 = DD_ROWS rows): the prover's p^3 half at k = 256 (B1:
+    # y^(n^2 mod p^2(p-1)); B2: 1,024 per-row digits of x^n), against
+    # plain on all rows, on the prover's own engine; the verifier's
+    # k = 512 ladders (B1: f^(n^2); B2: 1,024 digits of e^n) timed on all
+    # rows, 4 rows against pow (the same exponents run against plain at
+    # L2_BATCH rows above)
+    t0 = time.perf_counter()
+    eng_p3 = zd.crt_plans(skey, dev).eng_p
+    p3 = eng_p3.spec.N
+    dd_e = pk.n2 % (skey.p * skey.p * (skey.p - 1))
+    dd_sched = sliding_window_schedule(dd_e, 6)
+    xs = [rng.randrange(1, p3) for _ in range(DD_ROWS)]
+    x = residues(eng_p3, xs)
+    got, dd_b1_ms, dd_b1_plain_ms = compare(
+        "B1", lambda: b1(eng_p3.ctx, x, dd_sched, 6),
+        lambda: b1_plain(eng_p3.ctx, x, dd_sched, 6),
+        f"k={eng_p3.spec.k} rows={DD_ROWS} e={dd_e.bit_length()}-bit",
+        warm=True)
+    check_pow(eng_p3, xs, [dd_e] * 4, [1] * 4, got, 4, "B1 k=256")
+    phase("kernel", f"B1 k={eng_p3.spec.k} (p^3), {DD_ROWS} rows, "
+          f"{dd_e.bit_length()}-bit e ({len(dd_sched) - 1} steps): "
+          f"bit-identical to plain and to pow; kernel {dd_b1_ms:.3f} ms, "
+          f"plain {dd_b1_plain_ms:.3f} ms; "
+          f"{b1_tile(eng_p3, DD_ROWS, dd_sched, dd_b1_ms)}")
+    es = [rng.randrange(pk.n2) for _ in range(DD_ROWS)]
+    dd_dig = limbs_to_digits(limbs(es, 2 * dk.L), 4)
+    got, dd_b2_ms, dd_b2_plain_ms = compare(
+        "B2", lambda: b2(eng_p3.ctx, x, dd_dig, 4),
+        lambda: b2_plain(eng_p3.ctx, x, dd_dig, 4),
+        f"k={eng_p3.spec.k} rows={DD_ROWS} per-row {dd_dig.shape[-1]} "
+        f"digits", warm=True)
+    check_pow(eng_p3, xs, es, [1] * 4, got, 4, "B2 k=256")
+    phase("kernel", f"B2 k={eng_p3.spec.k} (p^3), {DD_ROWS} rows, per-row "
+          f"{dd_dig.shape[-1]} digits: bit-identical to plain and to pow; "
+          f"kernel {dd_b2_ms:.3f} ms, plain {dd_b2_plain_ms:.3f} ms; "
+          f"{b2_tile(eng_p3, DD_ROWS, dd_dig.shape[-1], dd_b2_ms)}")
+    xs = [rng.randrange(1, pk.n3) for _ in range(DD_ROWS)]
+    x = residues(eng_n3, xs)
+    sched_n2 = sliding_window_schedule(pk.n2, 6)
+    dd_wide = {}
+    for kname, run_k, es_k in (
+            ("B1", lambda: b1(eng_n3.ctx, x, sched_n2, 6), [pk.n2] * 4),
+            ("B2", lambda: b2(eng_n3.ctx, x, dd_dig, 4), es)):
+        run_k()                                                    # warm
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = run_k()
+        ev[1].record()
+        torch.cuda.synchronize()
+        check_pow(eng_n3, xs, es_k, [1] * 4, got, 4, f"{kname} k=512 DDLEQ")
+        dd_wide[kname] = ms = ev[0].elapsed_time(ev[1])
+        stats[kname]["times"].append({"shape": f"k={eng_n3.spec.k} "
+                                      f"rows={DD_ROWS} (DDLEQ verifier; "
+                                      f"no plain run)", "ms": ms,
+                                      "plain_ms": None})
+    phase("kernel", f"DDLEQ verifier at k={eng_n3.spec.k}, {DD_ROWS} rows "
+          f"(4 rows equal pow): B1 f^(n^2) "
+          f"{dd_wide['B1']:.3f} ms, "
+          f"{b1_tile(eng_n3, DD_ROWS, sched_n2, dd_wide['B1'])}; B2 "
+          f"{dd_dig.shape[-1]} digits {dd_wide['B2']:.3f} ms, "
+          f"{b2_tile(eng_n3, DD_ROWS, dd_dig.shape[-1], dd_wide['B2'])} "
           f"({time.perf_counter() - t0:.1f} s)")
     del x, got
 
@@ -1279,6 +1373,131 @@ def main() -> None:
           f"verifies, the tampered one fails, {HOST_ROWS} verify on the "
           f"host, combine_with_zkp gives the plaintexts ({t_zkp:.2f} s; "
           f"{time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 11. ddleq: bench.py's `ddleq` configuration -----------------------
+    # 2048-bit key (phase 4's), secpar 40, chunks of 128 nested
+    # re-encryptions, a warm-up chunk, then a timed serial chunk with its
+    # hashes and host steps timed apart, the checks, and the two-chunk
+    # pipeline (bench.py's 256 proofs, seeds 0xDD1E0 + i)
+    t0 = time.perf_counter()
+    drng = random.Random(SEED + 11)
+    dms = [drng.randrange(n) for _ in range(DD_CHUNK)]
+    dct1 = nested_encrypt(pk, dms, drng, device=dev)
+    dct2, da, db = hom.nested_randomize(pk, dct1, drng)
+    proof = zd.prove(skey, dct1, dct2, da, db, DD_SECPAR, drng)
+    if zd.verify(pk, dct1, dct2, proof) != [True] * DD_CHUNK:
+        fail("a DDLEQ proof of the warm-up chunk did not verify")
+    dct3 = nested_encrypt(pk, [drng.randrange(n) for _ in range(DD_CHUNK)],
+                          drng, device=dev)
+    sub8 = [Ciphertext(c=c.c[:HOST_ROWS], level=2) for c in (dct1, dct2)]
+    phase("ddleq", f"{DD_CHUNK} nested encryptions re-randomized, a warm-up "
+          f"chunk proven and verified (secpar {DD_SECPAR}: {DD_ROWS} rows) "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    host_s: dict = {}
+
+    def time_attr(obj, name, key, sync=False):
+        """Wrap obj.name so each call's seconds add to host_s[key]
+        (between two synchronisations when ``sync``); returns an undo."""
+        real = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            host_s[key] = host_s.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, name, wrapped)
+        return lambda: setattr(obj, name, real)
+
+    from paillier_tpu_torch.core import decrypt as core_dec
+    from paillier_tpu_torch.ops import random as ops_random
+    undo = [time_attr(zd, "_challenge_bits", "hash", sync=True),
+            time_attr(ops_random, "random_units_limbs", "random_units_limbs"),
+            time_attr(bhost, "modinv_batch", "modinv_batch"),
+            time_attr(core_dec, "Decryptor", "level-2 Decryptor")]
+    srng = random.Random(SEED + 12)
+
+    def dd_serial():
+        pr = timed("prove", lambda: zd.prove(skey, dct1, dct2, da, db,
+                                             DD_SECPAR, srng), 7, 8, 0, 1)
+        return pr, timed("verify", lambda: zd.verify(pk, dct1, dct2, pr),
+                         2, 1)
+
+    (proof, ok), _ = run_path("ddleq", dd_serial, {"B1": 9, "B2": 9,
+                                                   "B4": 1})
+    for u in undo:
+        u()
+    t_prove, t_verify = op_s["prove"], op_s["verify"]
+    dd_line = op_line()
+    if ok != [True] * DD_CHUNK:
+        fail(f"{ok.count(False)} of {DD_CHUNK} DDLEQ proofs did not verify")
+
+    def dd_checks():
+        # the split against full width on the first 8 proofs; one
+        # verification of the chunk with proof 0's f tampered and the
+        # last proof checked against an unrelated nested ciphertext
+        crt = timed("prove 8 (split)", lambda: zd.prove(
+            skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
+            random.Random(SEED + 13)), 7, 8, 0, 1)
+        full = timed("prove 8 (full width)", lambda: zd.prove(
+            skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
+            random.Random(SEED + 13), use_crt=False), 6, 5, 0, 1)
+        f = proof.f.clone()
+        f[0, 0, 0] ^= 1
+        c2 = dct2.c.clone()
+        c2[-1] = dct3.c[-1]
+        return crt, full, timed("verify tampered / unrelated", lambda: (
+            zd.verify(pk, dct1, Ciphertext(c=c2, level=2),
+                      dataclasses.replace(proof, f=f))), 2, 1)
+
+    (crt8, full8, bad_ok), _ = run_path(
+        "ddleq", dd_checks, {"B1": 15, "B2": 14, "B4": 2})
+    check_line = op_line()
+    fields = ("x", "y", "alpha", "e", "f")
+    if not all(torch.equal(getattr(crt8, f), getattr(full8, f))
+               for f in fields):
+        fail("DDLEQ proofs with the p^3/q^3 split != full-width proofs")
+    if bad_ok != [False] + [True] * (DD_CHUNK - 2) + [False]:
+        fail(f"a tampered proof and an unrelated ciphertext verified as "
+             f"{bad_ok[:2]} ... {bad_ok[-2:]}")
+    ints = DDLEQProof(*(getattr(proof, f)[:1, :HOST_ROWS] for f in fields)
+                      ).to_ints()
+    c1h, c2h = decode_batch(dct1.c[:1]), decode_batch(dct2.c[:1])
+    n3 = pk.n3
+    for j in range(HOST_ROWS):
+        x_, y_, al, e_, f_ = (ints[f][0][j] for f in fields)
+        base = c2h[0] if oracle_bit(c1h[0], c2h[0], x_, y_, al) else c1h[0]
+        if pow(base, pow(e_, n, n2), n3) * pow(f_, n2, n3) % n3 != al:
+            fail("a DDLEQ instance fails the host formula")
+    phase("ddleq", f"serial chunk of {DD_CHUNK} proofs x {DD_SECPAR}: "
+          f"prove {t_prove:.4f} s, verify {t_verify:.4f} s; seconds: "
+          f"{dd_line}; inside them: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in host_s.items())
+          + f"; checks: {check_line}; every proof verifies, the split "
+          f"equals full width on {HOST_ROWS} proofs, the tampered proof "
+          f"and the proof against an unrelated ciphertext fail and the "
+          f"rest verify, {HOST_ROWS} instances pass the host formula")
+
+    def dd_pipeline():
+        jobs = ((dct1, dct2, da, db, random.Random(0xDD1E0 + i))
+                for i in range(DD_CHUNKS))
+        return list(zd.pipeline_prove_verify(skey, jobs, DD_SECPAR,
+                                             verify_pk=pk))
+
+    oks, t_dd = run_path("ddleq", dd_pipeline, {
+        "B1": 9 * DD_CHUNKS, "B2": 9 * DD_CHUNKS, "B4": DD_CHUNKS})
+    if oks != [[True] * DD_CHUNK] * DD_CHUNKS:
+        fail("a pipelined DDLEQ proof did not verify")
+    dd_rate = DD_CHUNK * DD_CHUNKS / t_dd
+    phase("ddleq", f"pipeline of {DD_CHUNKS} chunks ({DD_CHUNK * DD_CHUNKS} "
+          f"proofs, 2 workers): {t_dd:.4f} s, {dd_rate:.2f} DDLEQ "
+          f"prove+verify/s ({card}); serial {DD_CHUNK / (t_prove + t_verify):.2f}"
+          f" ({time.perf_counter() - t0:.1f} s in all)")
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- bounds: the least time the card could take for each timed call ----
@@ -1333,6 +1552,33 @@ def main() -> None:
     phase("bounds", "threshold shapes (ms, share of bound): " + ", ".join(
         f"{kn} {thr_ms[kn]:.3f} against {b[0]:.4f} by {b[1]} "
         f"({100 * b[0] / thr_ms[kn]:.2f}%)" for kn, b in thr_bounds.items()))
+
+    # DDLEQ's shapes (phase 3) on DD_ROWS rows: the prover's p^3 half at
+    # k = 256 (B1 with the reduced n^2, B2 with 1,024 per-row digits) and
+    # the verifier's k = 512 ladders (B1 e = n^2, B2 1,024 digits)
+    def b1_mults(sc):
+        return 32 + 1 + int((sc[1:] >= -1).sum()) + int((sc[1:] >= 0).sum()) \
+            + 1
+
+    nd_dd = dd_dig.shape[-1]
+    dd_b2_mults = 1 + 14 + 5 * nd_dd + 1
+    kh, kw = eng_p3.spec.k, eng_n3.spec.k
+    dd_shapes = {   # name: (ms, bound)
+        f"B1 k={kh}": (dd_b1_ms, rns_bound(b1_mults(dd_sched), DD_ROWS, kh,
+                                           2 * DD_ROWS * 2 * kh * 4)),
+        f"B2 k={kh}": (dd_b2_ms, rns_bound(dd_b2_mults, DD_ROWS, kh,
+                                           DD_ROWS * (4 * kh * 4
+                                                      + nd_dd * 4))),
+        f"B1 k={kw}": (dd_wide["B1"], rns_bound(b1_mults(sched_n2), DD_ROWS,
+                                                kw, 2 * DD_ROWS * 2 * kw * 4)),
+        f"B2 k={kw}": (dd_wide["B2"], rns_bound(dd_b2_mults, DD_ROWS, kw,
+                                                DD_ROWS * (4 * kw * 4
+                                                           + nd_dd * 4))),
+    }
+    phase("bounds", f"ddleq shapes, {DD_ROWS} rows (ms, share of bound): "
+          + ", ".join(f"{k} {ms:.3f} against {b[0]:.4f} by {b[1]} "
+                      f"({100 * b[0] / ms:.2f}%)"
+                      for k, (ms, b) in dd_shapes.items()))
 
     def entry(kname, name, source, replaces, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source,

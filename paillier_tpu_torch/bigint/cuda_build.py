@@ -11,7 +11,7 @@ falls back: a missing ``nvcc`` or a failed build raises.
 
 Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
 matrices packed into tensor-core fragments, and the checks of a context
-against an operand).
+against an operand), and the launch counter of B1-B4.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -198,6 +199,16 @@ def check_operand(ctx, x: torch.Tensor, window: int, kernel: str) -> None:
     for name, t in ctx._asdict().items():
         if t.device != x.device:
             raise ValueError(f"context {name} on {t.device}, x on {x.device}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock: the DDLEQ chunk
+    pipeline launches the kernels from two threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def context_pointers(ctx) -> tuple:

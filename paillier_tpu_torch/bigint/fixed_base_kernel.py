@@ -108,7 +108,7 @@ def rns2_pow_fixed_base_b3(ctx: Rns2Context, table: torch.Tensor, digits,
             window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B3 launch failed: cudaError {err}")
-    rns2_pow_fixed_base_b3.launches += 1
+    cuda_build.count_launch(rns2_pow_fixed_base_b3)
     return out
 
 

@@ -117,7 +117,7 @@ def rns2_pow_b2(ctx: Rns2Context, x: torch.Tensor, digits,
             B, ctx.k, window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B2 launch failed: cudaError {err}")
-    rns2_pow_b2.launches += 1
+    cuda_build.count_launch(rns2_pow_b2)
     return out[0] if squeeze else out
 
 

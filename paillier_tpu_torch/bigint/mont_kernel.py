@@ -200,7 +200,7 @@ def launch(ctx: MontCtx, base: torch.Tensor, digits: torch.Tensor,
             window, tpi, rb, stream)
     if err:
         raise RuntimeError(f"kernel B4 launch failed: cudaError {err}")
-    mont_pow_b4.launches += 1
+    cuda_build.count_launch(mont_pow_b4)
     return out[:, :L].to(torch.int64)
 
 

@@ -101,7 +101,7 @@ def rns2_pow_sliding_b1(ctx: Rns2Context, x: torch.Tensor, sched,
             B, ctx.k, window, rows, stream)
     if err:
         raise RuntimeError(f"kernel B1 launch failed: cudaError {err}")
-    rns2_pow_sliding_b1.launches += 1
+    cuda_build.count_launch(rns2_pow_sliding_b1)
     return out[0] if squeeze else out
 
 

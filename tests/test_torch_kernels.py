@@ -842,6 +842,110 @@ def test_kernel_b2_tiles_on_cuda(cuda_device, bits, rows, tile, window):
                                        zip(xs[:m], want_e[:m])]
 
 
+# rows at which the launcher's rule picks each tile at k = 256 (DDLEQ's
+# p^3 / q^3 halves): searched on the card, not assumed
+_K256_ROWS = (1, 5, 13, 33, 65, 129, 257, 529, 1063, 1553, 2143, 3001,
+              4099, 5120)
+
+
+def _rows_for_tile(rule, k, tile):
+    for rows in _K256_ROWS:
+        if rule(rows, k) == tile:
+            return rows
+    pytest.fail(f"the tile rule picks no {tile}-row tile at k = {k} for "
+                f"any of {_K256_ROWS} rows")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fin", [True, False])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_kernel_b1_k256_tiles_on_cuda(cuda_device, tile, fin):
+    """Kernel B1 at k = 256 (a 3,072-bit modulus: the width of DDLEQ's
+    p^3 and q^3 ladders at 2048 bits) with each tile of 8, 16 and 32
+    rows, on a row count at which the launcher's rule picks it:
+    bit-identical to the plain ladder and to pow."""
+    rng = random.Random(0x256 + tile)
+    eng = tr.Rns2Engine(_odd(rng, 3072), device=cuda_device)
+    assert eng.spec.k == 256
+    rows = _rows_for_tile(sk.load().rns2_sliding_rows, 256, tile)
+    _b1_against_plain(eng, rng, rows, 96, fin, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_kernel_b2_k256_tiles_on_cuda(cuda_device, tile):
+    """Kernel B2 at k = 256 with each tile, per-row and shared digits (a
+    zero exponent included): bit-identical to the plain ladder, one
+    launch each, and the first 65 rows equal to pow."""
+    rng = random.Random(0xB256 + tile)
+    n = _odd(rng, 3072)
+    eng = tr.Rns2Engine(n, device=cuda_device)
+    assert eng.spec.k == 256
+    rows = _rows_for_tile(mx.load().rns2_modexp_rows, 256, tile)
+    xs = [rng.randrange(n) for _ in range(rows)]
+    x = eng.encode(xs)
+    es = [rng.getrandbits(64) for _ in range(rows - 1)] + [0]
+    per = torch.as_tensor(np.stack([exp_digits(e, 4, 16) for e in es]),
+                          device=cuda_device)
+    m = min(rows, 65)
+    for digits, want_e in ((per, es), (per[0], [es[0]] * rows)):
+        before = mx.rns2_pow_b2.launches
+        got = mx.rns2_pow_b2(eng.ctx, x, digits, 4)
+        assert mx.rns2_pow_b2.launches == before + 1
+        assert torch.equal(got, mx.rns2_pow_plain(eng.ctx, x, digits, 4))
+        assert eng.decode(got[:m]) == [pow(v, e, n) for v, e in
+                                       zip(xs[:m], want_e[:m])]
+
+
+@pytest.mark.cuda
+def test_ddleq_on_cuda(cuda_device):
+    """DDLEQ at a 256-bit key on the card: prove (with the p^3/q^3 split:
+    B1 7, B2 8, B4 1; without: B1 6, B2 5, B4 1) and verify (B1 2, B2 1)
+    give the CPU's proof and verdicts from the same inputs and seed; a
+    tampered instance fails its proof only; the two-chunk pipeline's
+    verdicts equal the serial ones."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch.core.keys import Ciphertext
+    from paillier_tpu_torch.zk import ddleq as zd
+
+    def counts():
+        return (sk.rns2_pow_sliding_b1.launches, mx.rns2_pow_b2.launches,
+                mk.mont_pow_b4.launches)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    skey, pk = pt.keygen(256, random.Random(0xDD), device="cpu")
+    rng = random.Random(0xDE)
+    ct1 = pt.nested_encrypt(pk, [rng.randrange(pk.n) for _ in range(5)],
+                            rng, device="cpu")
+    ct2, a_l, b_l = pt.homomorphic.nested_randomize(pk, ct1, rng)
+    want = zd.prove(skey, ct1, ct2, a_l, b_l, 8, random.Random(3))
+    g1 = Ciphertext(c=ct1.c.to(cuda_device), level=2)
+    g2 = Ciphertext(c=ct2.c.to(cuda_device), level=2)
+    for use_crt, launches in ((True, (7, 8, 1)), (False, (6, 5, 1))):
+        c0 = counts()
+        got = zd.prove(skey, g1, g2, a_l, b_l, 8, random.Random(3),
+                       use_crt=use_crt)
+        assert delta(c0) == launches
+        for f in ("x", "y", "alpha", "e", "f"):
+            assert getattr(got, f).device.type == "cuda"
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    c0 = counts()
+    assert zd.verify(pk, g1, g2, got) == [True] * 5
+    assert delta(c0) == (2, 1, 0)
+    ints = got.to_ints()
+    ints["f"][2][1] = (ints["f"][2][1] + 1) % pk.n3
+    bad = zd.DDLEQProof.from_ints(L=pk.device(cuda_device).L,
+                                  device=cuda_device, **ints)
+    assert zd.verify(pk, g1, g2, bad) == [True, True, False, True, True]
+    jobs = [(g1, g2, a_l, b_l, random.Random(10 + i)) for i in range(2)]
+    c0 = counts()
+    assert list(zd.pipeline_prove_verify(skey, jobs, 8, verify_pk=pk)) == \
+        [[True] * 5] * 2
+    assert delta(c0) == (18, 18, 2)
+
+
 @pytest.mark.cuda
 def test_alt_extract_and_prime_search_on_cuda(cuda_device):
     """Alternative encryption (B3, one launch per call) at levels 1 and 2,
