@@ -23,19 +23,23 @@ non-zero):
                 exact) and a few rows must equal Python's pow.
                 B1: k = 64 (256-bit modulus); the main path's shapes,
                 4096 rows at k = 320 (r^n * G^m mod n^2) and k = 192
-                (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3);
-                64 rows at k = 704 (a random odd 8192-bit modulus); each
-                k also the other way round (with fin where the main shape
-                has none, and without where it has it) on 33 rows with a
-                256-bit exponent.  Each main shape prints its tile rows
+                (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3)
+                and 64 rows at k = 704 (a random odd 8192-bit modulus,
+                a 2048-bit exponent, fin), these two against plain on all
+                rows on the top 1,024 bits of their exponents, timed at
+                full depth and against pow; each k also the other way
+                round (with fin where the main shape has none, and
+                without where it has it) on 33 rows with a 256-bit
+                exponent, against plain.  Each main shape prints its tile rows
                 and us per Montgomery multiply, and the L2 bytes per
                 multiply and read rate that its shape implies (blocks x
                 both [2k, 2k] int8 matrices; worked out, not counted).
                 B2: shared and per-row digits at k = 64; per-row 2048-bit
                 exponents on 4096 rows at k = 320 (const_mult); 1024 rows
                 at k = 512 with the 1024 digits of level-1 ciphertexts
-                (nested_add); each main shape prints its tile rows and us
-                per multiply.
+                (nested_add; the last 256 digits against plain, all 1024
+                timed and against pow); each main shape prints its tile
+                rows and us per multiply.
                 B3: k = 64 with and without fin; the main path's shapes,
                 4096 rows at k = 320 (h1's comb, 256 per-row digits of
                 r < K) and 1024 rows at k = 512 (h2's comb), each
@@ -54,14 +58,22 @@ non-zero):
                 stacked rows of combine's Lagrange ladder, 4 per-row
                 digits; B4 at L = 256 (mod n^2) on 5 rows with per-row
                 1,025-digit exponents (the verification keys; 32 digits
-                against plain, all against pow).
+                against plain, all against pow); B4 at L = 512 (n^2 of a
+                4096-bit key) on 5 rows of one base with per-row 2,050-
+                digit exponents delta * s_i: ThresholdKeyGenerator(4096)'s
+                verification keys equal the kernel called directly (timed)
+                and pow (computed in 5 worker processes while phase 3
+                runs: a plain ladder at L = 512 is far too slow).
                 DDLEQ's shapes on bench.py's chunk (128 proofs x secpar
                 40 = 5,120 rows): B1 and B2 at k = 256 (the prover's
                 p^3 half: y^(n^2 mod p^2(p-1)), 1,024 per-row digits)
-                against plain on all rows; the verifier's B1 (f^(n^2))
+                against plain on all rows (B1 on the top 1,024 bits of
+                its exponent, B2 on its last 256 digits; both timed at
+                full depth and against pow); the verifier's B1 (f^(n^2))
                 and B2 (1,024 digits) at k = 512 timed on all rows, 4
-                against pow (the same exponents run against plain above
-                at 1024 rows).
+                against pow (that shape, 1024 rows at k = 512, runs
+                against plain above: B1 on the top 1,024 bits of n^2,
+                B2 on the last 256 digits).
                 Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
@@ -123,14 +135,35 @@ non-zero):
                 then pipeline_prove_verify over two chunks (256 proofs,
                 seeds 0xDD1E0 + i): DDLEQ prove+verify/s with the
                 card's name and power limit.
-Phases 4-11 each set the launch counters to 0 just before their
+ 12. parallel -- two gloo ranks spawned on the card (tests/torch_ranks.py's
+                run_ranks; the ranks load the kernels phase 2 built):
+                sharded_aggregate of phase 5's 65,536-row tile (32,768 a
+                rank) equals phase 5's product; distributed_combine of
+                phase 10's 4096 ciphertexts with servers 1-4 on a (2 x 1)
+                mesh (each rank: partial_decrypt_all of its two servers,
+                B1 2, and their Lagrange powers, B2 1) gives the
+                plaintexts; prove + verify with mesh= of phase 11's 8
+                proofs (its split check, the first proofs of the process)
+                and then of one chunk of 128 x 40 (2,560 flat rows a
+                rank), each from phase 11's seed, are bit-identical to
+                phase 11's proofs (SHA-256 of the limbs) and every proof
+                verifies.  Each rank times
+                each step between synchronisations and counts its
+                launches from 0 (set-up 0; the aggregate seam 0; prove
+                B1 7, B2 8, B4 1; verify B1 2, B2 1); any rank's failure
+                or a count off by one fails the run.  Prints each step's
+                seconds a rank, the aggregate seam (sharded_aggregate
+                less a warm local tree) and the warm sharded chunk beside
+                phase 11's serial chunk.
+Phases 4-12 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3 and B4 launches differ from the exact count its entry
 points make fails (the prime search's B4 count is the number of Fermat
 batches it reports; phase 10: keys B4 1, partial decryption B1 3,
 combine B2 1, the proofs B1 3 and B2 35; phase 11: the serial chunk
 B1 9, B2 9, B4 1, the checks B1 15, B2 14, B4 2, the pipeline B1 18,
-B2 18, B4 2), and phase 9 fails unless every probe kernel launched.
+B2 18, B4 2; phase 12: each rank's, above, and none in this process),
+and phase 9 fails unless every probe kernel launched.
 Then lines of the threshold and DDLEQ shapes' bounds, one JSON line
 describing the kernels, the card's name and power limit, and as the
 last line
@@ -140,14 +173,17 @@ last line
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import random
 import re
 import subprocess
 import sys
+import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 BATCH = 4096           # bench.py's headline batch
 L2_BATCH = 1024        # level-2 batch
@@ -156,6 +192,8 @@ KEY_BITS = 2048
 SEED = 2048
 WARM_ROWS = 64         # rows of the untimed first encrypt / decrypt
 HOST_ROWS = 8          # rows checked against the host formula
+PLAIN_DIGITS = 256     # depth of the plain comparisons of the widest
+# ladders (base-16 digits; B1 at DDLEQ's k = 256: 4 bits a digit)
 THR_E_BITS = 4100      # partial decryption's 2*delta*s_i at 2048 bits
 DD_CHUNK = 128         # bench.py's ddleq configuration: proofs a chunk,
 DD_SECPAR = 40         # instances a proof,
@@ -216,11 +254,93 @@ def ptxas_report(log: str) -> list[str]:
     return out
 
 
+def parallel_rank(rank: int, world: int, p: dict) -> dict:
+    """Phase 12, one of two gloo ranks on the card: the two seams and a
+    sharded DDLEQ chunk through the port's entry points.  Returns each
+    step's seconds, its results (the proofs as SHA-256 digests of their
+    limbs) and each seam's B1-B4 launches."""
+    import hashlib
+
+    import torch
+    from paillier_tpu_torch import Ciphertext, homomorphic as hom
+    from paillier_tpu_torch.bigint import (fixed_base_kernel, modexp_kernel,
+                                           mont_kernel, sliding_kernel)
+    from paillier_tpu_torch.core.keys import decode_batch
+    from paillier_tpu_torch.parallel import (make_mesh, shard_batch,
+                                             sharded_aggregate)
+    from paillier_tpu_torch.zk import ddleq as zd
+    from torch_ranks import combine_steps
+    if "jax" in sys.modules:
+        raise RuntimeError("a rank imported JAX")
+    wrappers = (sliding_kernel.rns2_pow_sliding_b1, modexp_kernel.rns2_pow_b2,
+                fixed_base_kernel.rns2_pow_fixed_base_b3,
+                mont_kernel.mont_pow_b4)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    out: dict = {"s": {}, "launches": {}}
+
+    def step(name, fn):
+        """fn() between two synchronisations, its kernel launches counted
+        from 0."""
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["s"][name] = time.perf_counter() - t
+        out["launches"][name] = [w.launches for w in wrappers]
+        return res
+
+    skey, pk, tkeys = p["skey"], p["pk"], p["tkeys"]
+    tpk = tkeys[0].public()
+
+    def setup():
+        for mod in (sliding_kernel, modexp_kernel, mont_kernel):
+            mod.load()
+        for key, levels in ((pk, (1, 2)), (tpk, (1,))):
+            for lv in levels:
+                key.device(dev).rns(lv)
+        zd.crt_plans(skey, dev)
+        return (make_mesh(device_type="cuda"),
+                make_mesh(world, servers=world, device_type="cuda"))
+
+    mesh, mesh2 = step("set-up", setup)
+    # the aggregate seam: this rank's half of phase 5's tile
+    tile = torch.as_tensor(p["cx"], device=dev).repeat(p["tile_reps"], 1)
+    local = Ciphertext(c=shard_batch(tile, mesh))
+    step("local aggregate (first call)", lambda: hom.aggregate(pk, local))
+    step("local aggregate", lambda: hom.aggregate(pk, local))
+    agg = step("sharded_aggregate", lambda: sharded_aggregate(pk, local, mesh))
+    out["agg"] = decode_batch(agg.c[None])[0]
+    # the combine seam: this rank's two servers of the first four
+    out["plain"] = combine_steps(
+        tkeys, torch.as_tensor(p["tct"], device=dev), mesh2, step)
+    # sharded DDLEQ: phase 11's 8-proof check from its seed (the first
+    # proofs of this process), then the serial chunk from its seed
+    ct1, ct2 = (Ciphertext(c=torch.as_tensor(c, device=dev), level=2)
+                for c in (p["dct1"], p["dct2"]))
+    out["ok"], out["digests"] = [], []
+    for tag, rows, seed in ((f" ({HOST_ROWS} proofs, first)", HOST_ROWS,
+                             p["seed8"]), ("", len(p["da"]), p["seed"])):
+        c1, c2 = (Ciphertext(c=c.c[:rows], level=2) for c in (ct1, ct2))
+        proof = step("prove" + tag, lambda: zd.prove(
+            skey, c1, c2, p["da"][:rows], p["db"][:rows], p["secpar"],
+            random.Random(seed), mesh=mesh))
+        out["ok"].append(step("verify" + tag, lambda: zd.verify(
+            pk, c1, c2, proof, mesh=mesh)))
+        out["digests"].append({f: hashlib.sha256(
+            getattr(proof, f).cpu().numpy().tobytes()).hexdigest()
+            for f in ("x", "y", "alpha", "e", "f")})
+    return out
+
+
 def main() -> None:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "paillier_tpu_torch")):
         fail("paillier_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, here)
+    sys.path.insert(0, os.path.join(here, "tests"))
 
     import numpy as np
     import torch
@@ -267,6 +387,7 @@ def main() -> None:
     from paillier_tpu_torch.probes import pad as pr_pad
     from paillier_tpu_torch.probes import vpuops as pr_vpuops
     from paillier_tpu_torch.probes.cases import CASES as probe_case_list
+    from torch_ranks import run_ranks
     b1 = sk_mod.rns2_pow_sliding_b1
     b1_plain = sk_mod.rns2_pow_sliding_plain
     b2 = mx_mod.rns2_pow_b2
@@ -364,8 +485,34 @@ def main() -> None:
         if eng.decode(got[:rows]) != want:
             fail(f"kernel output != Python pow ({label})")
 
+    def kernel_ms(kname, run_kernel, label):
+        """The kernel once to warm, then once between two CUDA events (no
+        plain run: its shape's comparison with plain ran at a lower
+        depth, as ``label`` says); returns its output and milliseconds."""
+        run_kernel()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = run_kernel()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        stats[kname]["times"].append({"shape": label, "ms": ms,
+                                      "plain_ms": None})
+        return got, ms
+
     def residues(eng, vals):
         return eng.from_limbs(encode_batch(vals, eng.converter.L, device=dev))
+
+    # the verification keys of a 4096-bit (5, 3) key (B4 at L = 512,
+    # below): their pow, seconds a row on one core, in 5 worker processes
+    vrng = random.Random(0x4096)
+    vk_mod = (vrng.getrandbits(2 * KEY_BITS) | (1 << (2 * KEY_BITS - 1))
+              | 1) ** 2
+    vk_v = vrng.randrange(2, vk_mod)
+    vk_shares = [vrng.getrandbits(4 * KEY_BITS) for _ in range(5)]
+    vk_exps = [120 * s_ for s_ in vk_shares]           # delta = 5! = 120
+    vk_pool = ProcessPoolExecutor(5, mp_context=mp.get_context("spawn"))
+    vk_pows = vk_pool.map(pow, [vk_v] * 5, vk_exps, [vk_mod] * 5)
 
     # B1 and B2 at k = 64
     t0 = time.perf_counter()
@@ -556,14 +703,21 @@ def main() -> None:
     xs = [rng.randrange(1, pk.n3) for _ in range(L2_BATCH)]
     x = residues(eng_n3, xs)
     sched = sliding_window_schedule(pk.n2, 6)
-    got, b1w_ms, b1w_plain_ms = compare(
+    e_short = pk.n2 >> (pk.n2.bit_length() - 4 * PLAIN_DIGITS)
+    short = sliding_window_schedule(e_short, 6)
+    _, _, b1w_plain_ms = compare(
+        "B1", lambda: b1(eng_n3.ctx, x, short, 6),
+        lambda: b1_plain(eng_n3.ctx, x, short, 6),
+        f"k={eng_n3.spec.k} rows={L2_BATCH} e={4 * PLAIN_DIGITS}-bit")
+    got, b1w_ms = kernel_ms(
         "B1", lambda: b1(eng_n3.ctx, x, sched, 6),
-        lambda: b1_plain(eng_n3.ctx, x, sched, 6),
-        f"k={eng_n3.spec.k} rows={L2_BATCH} e=n^2", warm=True)
+        f"k={eng_n3.spec.k} rows={L2_BATCH} e=n^2 (plain at "
+        f"{4 * PLAIN_DIGITS} bits)")
     check_pow(eng_n3, xs, [pk.n2] * 4, [1] * 4, got, 4, "B1 k=512")
     phase("kernel", f"B1 k={eng_n3.spec.k}, {L2_BATCH} rows, e=n^2 mod n^3 "
-          f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {b1w_ms:.3f} ms, plain {b1w_plain_ms:.3f} ms; "
+          f"({len(sched) - 1} steps): its top {4 * PLAIN_DIGITS} bits "
+          f"bit-identical to plain on all rows (plain {b1w_plain_ms:.3f} "
+          f"ms), all equal to pow; kernel {b1w_ms:.3f} ms; "
           f"{b1_tile(eng_n3, L2_BATCH, sched, b1w_ms)}")
     b1_other_fin(eng_n3, True)
 
@@ -576,14 +730,19 @@ def main() -> None:
     x, fin = residues(eng_w, xs), residues(eng_w, fs)
     e = rng.getrandbits(2048) | (1 << 2047)
     sched = sliding_window_schedule(e, 6)
-    got, ms, plain_ms = compare(
+    short = sliding_window_schedule(e >> (2048 - 4 * PLAIN_DIGITS), 6)
+    _, _, plain_ms = compare(
+        "B1", lambda: b1(eng_w.ctx, x, short, 6, fin=fin),
+        lambda: b1_plain(eng_w.ctx, x, short, 6, fin=fin),
+        f"k=704 rows=64 e={4 * PLAIN_DIGITS}-bit fin")
+    got, ms = kernel_ms(
         "B1", lambda: b1(eng_w.ctx, x, sched, 6, fin=fin),
-        lambda: b1_plain(eng_w.ctx, x, sched, 6, fin=fin),
-        "k=704 rows=64 e=2048-bit fin", warm=True)
+        f"k=704 rows=64 e=2048-bit fin (plain at {4 * PLAIN_DIGITS} bits)")
     check_pow(eng_w, xs, [e] * 4, fs, got, 4, "B1 k=704")
     phase("kernel", f"B1 k=704, 64 rows, 2048-bit e with fin "
-          f"({len(sched) - 1} steps): bit-identical to plain and to pow; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+          f"({len(sched) - 1} steps): its top {4 * PLAIN_DIGITS} bits "
+          f"bit-identical to plain on all rows (plain {plain_ms:.3f} ms), "
+          f"all equal to pow; kernel {ms:.3f} ms; "
           f"{b1_tile(eng_w, 64, sched, ms)}")
     b1_other_fin(eng_w, False)
     del eng_w, x, fin
@@ -644,16 +803,20 @@ def main() -> None:
     es = decode_batch(c1.c)
     xs = [rng.randrange(1, pk.n3) for _ in range(L2_BATCH)]
     x = residues(eng_n3, xs)
-    got, b2w_ms, b2w_plain_ms = compare(
+    _, _, b2w_plain_ms = compare(
+        "B2", lambda: b2(eng_n3.ctx, x, dig[:, -PLAIN_DIGITS:], 4),
+        lambda: b2_plain(eng_n3.ctx, x, dig[:, -PLAIN_DIGITS:], 4),
+        f"k={eng_n3.spec.k} rows={L2_BATCH} per-row {PLAIN_DIGITS} digits")
+    got, b2w_ms = kernel_ms(
         "B2", lambda: b2(eng_n3.ctx, x, dig, 4),
-        lambda: b2_plain(eng_n3.ctx, x, dig, 4),
-        f"k={eng_n3.spec.k} rows={L2_BATCH} per-row {dig.shape[-1]} digits",
-        warm=True)
+        f"k={eng_n3.spec.k} rows={L2_BATCH} per-row {dig.shape[-1]} digits "
+        f"(plain at {PLAIN_DIGITS})")
     check_pow(eng_n3, xs, es, [1] * 4, got, 4, "B2 k=512")
     phase("kernel", f"B2 k={eng_n3.spec.k}, {L2_BATCH} rows, per-row "
-          f"{dig.shape[-1]} digits of level-1 ciphertexts: bit-identical "
-          f"to plain and to pow; kernel {b2w_ms:.3f} ms, plain "
-          f"{b2w_plain_ms:.3f} ms; "
+          f"{dig.shape[-1]} digits of level-1 ciphertexts: the last "
+          f"{PLAIN_DIGITS} bit-identical to plain (plain "
+          f"{b2w_plain_ms:.3f} ms), all equal to pow; kernel "
+          f"{b2w_ms:.3f} ms; "
           f"{b2_tile(eng_n3, L2_BATCH, dig.shape[-1], b2w_ms)}; "
           f"comparisons B1 {stats['B1']['n']}, "
           f"B2 {stats['B2']['n']}, max |diff| "
@@ -663,11 +826,12 @@ def main() -> None:
 
     # B1 and B2 at DDLEQ's shapes (bench.py's ddleq chunk: 128 proofs x
     # secpar 40 = DD_ROWS rows): the prover's p^3 half at k = 256 (B1:
-    # y^(n^2 mod p^2(p-1)); B2: 1,024 per-row digits of x^n), against
-    # plain on all rows, on the prover's own engine; the verifier's
-    # k = 512 ladders (B1: f^(n^2); B2: 1,024 digits of e^n) timed on all
-    # rows, 4 rows against pow (the same exponents run against plain at
-    # L2_BATCH rows above)
+    # y^(n^2 mod p^2(p-1)), its top 4 * PLAIN_DIGITS bits; B2: 1,024
+    # per-row digits of x^n, the last PLAIN_DIGITS of them), against plain
+    # on all rows, on the prover's own engine; the verifier's k = 512
+    # ladders (B1: f^(n^2); B2: 1,024 digits of e^n) timed on all rows, 4
+    # rows against pow (that shape runs against plain at L2_BATCH rows
+    # above, at the same cut depths)
     t0 = time.perf_counter()
     eng_p3 = zd.crt_plans(skey, dev).eng_p
     p3 = eng_p3.spec.N
@@ -675,28 +839,38 @@ def main() -> None:
     dd_sched = sliding_window_schedule(dd_e, 6)
     xs = [rng.randrange(1, p3) for _ in range(DD_ROWS)]
     x = residues(eng_p3, xs)
-    got, dd_b1_ms, dd_b1_plain_ms = compare(
+    e_short = dd_e >> (dd_e.bit_length() - 4 * PLAIN_DIGITS)
+    short = sliding_window_schedule(e_short, 6)
+    _, _, dd_b1_plain_ms = compare(
+        "B1", lambda: b1(eng_p3.ctx, x, short, 6),
+        lambda: b1_plain(eng_p3.ctx, x, short, 6),
+        f"k={eng_p3.spec.k} rows={DD_ROWS} e={4 * PLAIN_DIGITS}-bit")
+    got, dd_b1_ms = kernel_ms(
         "B1", lambda: b1(eng_p3.ctx, x, dd_sched, 6),
-        lambda: b1_plain(eng_p3.ctx, x, dd_sched, 6),
-        f"k={eng_p3.spec.k} rows={DD_ROWS} e={dd_e.bit_length()}-bit",
-        warm=True)
+        f"k={eng_p3.spec.k} rows={DD_ROWS} e={dd_e.bit_length()}-bit "
+        f"(plain at {4 * PLAIN_DIGITS} bits)")
     check_pow(eng_p3, xs, [dd_e] * 4, [1] * 4, got, 4, "B1 k=256")
     phase("kernel", f"B1 k={eng_p3.spec.k} (p^3), {DD_ROWS} rows, "
-          f"{dd_e.bit_length()}-bit e ({len(dd_sched) - 1} steps): "
-          f"bit-identical to plain and to pow; kernel {dd_b1_ms:.3f} ms, "
-          f"plain {dd_b1_plain_ms:.3f} ms; "
+          f"{dd_e.bit_length()}-bit e ({len(dd_sched) - 1} steps): its top "
+          f"{4 * PLAIN_DIGITS} bits bit-identical to plain on all rows "
+          f"(plain {dd_b1_plain_ms:.3f} ms), all equal to pow; kernel "
+          f"{dd_b1_ms:.3f} ms; "
           f"{b1_tile(eng_p3, DD_ROWS, dd_sched, dd_b1_ms)}")
     es = [rng.randrange(pk.n2) for _ in range(DD_ROWS)]
     dd_dig = limbs_to_digits(limbs(es, 2 * dk.L), 4)
-    got, dd_b2_ms, dd_b2_plain_ms = compare(
+    _, _, dd_b2_plain_ms = compare(
+        "B2", lambda: b2(eng_p3.ctx, x, dd_dig[:, -PLAIN_DIGITS:], 4),
+        lambda: b2_plain(eng_p3.ctx, x, dd_dig[:, -PLAIN_DIGITS:], 4),
+        f"k={eng_p3.spec.k} rows={DD_ROWS} per-row {PLAIN_DIGITS} digits")
+    got, dd_b2_ms = kernel_ms(
         "B2", lambda: b2(eng_p3.ctx, x, dd_dig, 4),
-        lambda: b2_plain(eng_p3.ctx, x, dd_dig, 4),
         f"k={eng_p3.spec.k} rows={DD_ROWS} per-row {dd_dig.shape[-1]} "
-        f"digits", warm=True)
+        f"digits (plain at {PLAIN_DIGITS})")
     check_pow(eng_p3, xs, es, [1] * 4, got, 4, "B2 k=256")
     phase("kernel", f"B2 k={eng_p3.spec.k} (p^3), {DD_ROWS} rows, per-row "
-          f"{dd_dig.shape[-1]} digits: bit-identical to plain and to pow; "
-          f"kernel {dd_b2_ms:.3f} ms, plain {dd_b2_plain_ms:.3f} ms; "
+          f"{dd_dig.shape[-1]} digits: the last {PLAIN_DIGITS} bit-identical "
+          f"to plain (plain {dd_b2_plain_ms:.3f} ms), all equal to pow; "
+          f"kernel {dd_b2_ms:.3f} ms; "
           f"{b2_tile(eng_p3, DD_ROWS, dd_dig.shape[-1], dd_b2_ms)}")
     xs = [rng.randrange(1, pk.n3) for _ in range(DD_ROWS)]
     x = residues(eng_n3, xs)
@@ -866,6 +1040,38 @@ def main() -> None:
           f"threshold verification keys): 32 digits bit-identical to plain "
           f"and to pow, all {nd5} equal to pow; {ms:.3f} ms; "
           f"{b4_shape(L4, 5, nd5, ms)} ({time.perf_counter() - t0:.1f} s)")
+    # B4 at L = 512 (n^2 of a 4096-bit key): the verification keys of a
+    # 4096-bit (5, 3) key through ThresholdKeyGenerator(4096), one base
+    # and per-row ~8,200-bit exponents delta * s_i, equal to the kernel
+    # called directly (timed) and to pow (started in phase 3's first
+    # lines in worker processes: a plain ladder at L = 512 takes minutes)
+    vk_gen = ThresholdKeyGenerator(2 * KEY_BITS, 5, 3, device=dev)
+    vk512 = vk_gen._verification_keys(vk_v, vk_shares, 120, vk_mod)
+    ctx_w = make_mont_ctx(vk_mod, device=dev)
+    Lw = ctx_w.n_limbs
+    ndw = n_digits_for_bits(max(e.bit_length() for e in vk_exps), 4)
+    digw = torch.as_tensor(np.stack([exp_digits(e, 4, ndw) for e in vk_exps]),
+                           device=dev)
+    xlw = limbs([vk_v] * 5, Lw)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = b4(ctx_w, xlw, digw, 4)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    if bhost.limbs_to_ints(got.cpu().numpy()) != vk512:
+        fail("B4 L=512: the generator's verification keys != the kernel's")
+    if vk512 != list(vk_pows):
+        fail("B4 L=512: verification keys != Python pow")
+    vk_pool.shutdown()
+    thr_ms["B4 L=512"] = ms
+    stats["B4"]["times"].append({"shape": f"L={Lw} rows=5 per-row {ndw} "
+                                 f"digits (no plain run)", "ms": ms,
+                                 "plain_ms": None})
+    phase("kernel", f"B4 L={Lw}, 5 rows, per-row {ndw} digits (the "
+          f"verification keys of a {2 * KEY_BITS}-bit (5, 3) key): "
+          f"ThresholdKeyGenerator({2 * KEY_BITS}) equals the kernel and "
+          f"pow; {ms:.3f} ms; {b4_shape(Lw, 5, ndw, ms)}")
     del got, xl
 
     launches = {kname: 0 for kname in wrappers}
@@ -1498,6 +1704,75 @@ def main() -> None:
           f"proofs, 2 workers): {t_dd:.4f} s, {dd_rate:.2f} DDLEQ "
           f"prove+verify/s ({card}); serial {DD_CHUNK / (t_prove + t_verify):.2f}"
           f" ({time.perf_counter() - t0:.1f} s in all)")
+    # -- 12. parallel: two gloo ranks on the card -------------------------
+    # sharded_aggregate over phase 5's tile, distributed_combine of phase
+    # 10's ciphertexts with 4 servers on a (2 x 1) mesh, and a sharded
+    # DDLEQ chunk from the serial chunk's seed; each rank returns its
+    # results, seconds and launches
+    t0 = time.perf_counter()
+    payload = dict(
+        skey=dataclasses.replace(skey), pk=dataclasses.replace(pk),
+        tkeys=[dataclasses.replace(k) for k in tkeys[:4]],
+        cx=cx.c.cpu().numpy(), tile_reps=AGG_TILE // BATCH,
+        tct=tct.c.cpu().numpy(), dct1=dct1.c.cpu().numpy(),
+        dct2=dct2.c.cpu().numpy(), da=da, db=db, secpar=DD_SECPAR,
+        seed=SEED + 12, seed8=SEED + 13)
+
+    def spawn():
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_ranks(parallel_rank, 2, payload, init_dir=tmp,
+                             timeout=240)
+
+    try:
+        ranks, t_par = run_path("parallel", spawn, {})
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 12: {exc}")
+    none = [0, 0, 0, 0]
+    want_launch = {"set-up": none, "local aggregate (first call)": none,
+                   "local aggregate": none, "sharded_aggregate": none,
+                   "partial_decrypt_all": [2, 0, 0, 0],
+                   "lagrange_powers": [0, 1, 0, 0],
+                   "distributed_combine": none,
+                   f"prove ({HOST_ROWS} proofs, first)": [7, 8, 0, 1],
+                   f"verify ({HOST_ROWS} proofs, first)": [2, 1, 0, 0],
+                   "prove": [7, 8, 0, 1], "verify": [2, 1, 0, 0]}
+    digests = [{f: hashlib.sha256(getattr(pr, f).cpu().numpy().tobytes())
+                .hexdigest() for f in fields} for pr in (crt8, proof)]
+    for r, out in enumerate(ranks):
+        if out["launches"] != want_launch:
+            fail(f"parallel rank {r} launched (B1, B2, B3, B4) "
+                 f"{out['launches']}, expected {want_launch}")
+        if out["agg"] != agg_host:
+            fail(f"parallel rank {r}: sharded_aggregate != aggregate")
+        if out["plain"] != tms:
+            fail(f"parallel rank {r}: distributed_combine != the plaintexts")
+        if out["digests"] != digests:
+            fail(f"parallel rank {r}: a sharded DDLEQ proof != phase 11's "
+                 f"proof from the same seed")
+        if out["ok"] != [[True] * HOST_ROWS, [True] * DD_CHUNK]:
+            fail(f"parallel rank {r}: a sharded DDLEQ proof did not verify")
+        for name, counts_ in out["launches"].items():
+            for kname, v in zip(wrappers, counts_):
+                launches[kname] += v
+    for name in want_launch:
+        phase("parallel", f"{name}: " + ", ".join(
+            f"rank {r} {out['s'][name]:.4f} s" for r, out in enumerate(ranks)))
+    seam = [out["s"]["sharded_aggregate"] - out["s"]["local aggregate"]
+            for out in ranks]
+    chunk = [out["s"]["prove"] + out["s"]["verify"] for out in ranks]
+    phase("parallel", f"seams: sharded_aggregate - local tree "
+          + ", ".join(f"{v:.4f}" for v in seam) + " s; sharded DDLEQ chunk "
+          "(prove + verify, warm) " + ", ".join(f"{v:.4f}" for v in chunk)
+          + f" s a rank against the serial chunk's "
+          f"{t_prove + t_verify:.4f} s ({card})")
+    phase("parallel", f"2 gloo ranks on one card ({card}): "
+          f"sharded_aggregate of {AGG_TILE} ({AGG_TILE // 2} a rank) equals "
+          f"phase 5's aggregate; distributed_combine of {BATCH} on a (2 x 1) "
+          f"mesh, 2 servers a rank, gives the plaintexts; a sharded DDLEQ "
+          f"chunk ({DD_ROWS // 2} flat rows a rank) is bit-identical to "
+          f"phase 11's serial chunk and verifies; every rank's launches "
+          f"exact; {t_par:.2f} s with the spawn "
+          f"({time.perf_counter() - t0:.1f} s in all)")
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- bounds: the least time the card could take for each timed call ----
@@ -1539,7 +1814,8 @@ def main() -> None:
 
     # the threshold path's shapes (phase 3): B1 with the 4,100-bit
     # exponent on BATCH rows, B2 on the 3 x BATCH stacked rows with 4
-    # digits, B4 at L = 256 on 5 rows with 1,025 digits
+    # digits, B4 at L = 256 on 5 rows with 1,025 digits and at L = 512
+    # with 2,050
     thr_b1 = 32 + 1 + int((sched_thr[1:] >= -1).sum()) + \
         int((sched_thr[1:] >= 0).sum()) + 1
     nw4 = L4 // 2
@@ -1548,7 +1824,10 @@ def main() -> None:
         "B2": rns_bound(1 + 14 + 4 * 5 + 1, 3 * BATCH, k1,
                         3 * BATCH * (2 * C1 * 4 + 4 * 4)),
         "B4": bound((16 + 5 * nd5 + 1) * 5 * (2 * nw4 * nw4 + nw4) / MAC32,
-                    5 * L4 * 8 * 2 + 5 * nd5 * 4 + 3 * L4 * 8)}
+                    5 * L4 * 8 * 2 + 5 * nd5 * 4 + 3 * L4 * 8),
+        "B4 L=512": bound((16 + 5 * ndw + 1) * 5
+                          * (2 * (Lw // 2) ** 2 + Lw // 2) / MAC32,
+                          5 * Lw * 8 * 2 + 5 * ndw * 4 + 3 * Lw * 8)}
     phase("bounds", "threshold shapes (ms, share of bound): " + ", ".join(
         f"{kn} {thr_ms[kn]:.3f} against {b[0]:.4f} by {b[1]} "
         f"({100 * b[0] / thr_ms[kn]:.2f}%)" for kn, b in thr_bounds.items()))

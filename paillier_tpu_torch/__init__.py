@@ -14,8 +14,10 @@ nested decryption, the homomorphic operations (``homomorphic.add``,
 (t, l)-threshold Paillier (:mod:`.threshold`: keys, partial decryption,
 combining, the share-decryption proofs with a batched SHA-256), DDLEQ
 proofs of nested re-encryption (:mod:`.zk.ddleq`), fixed-point
-encoding, serialization and the CLI (``python -m
-paillier_tpu_torch.cli``), on the CPU (plain torch) or on a CUDA device
+encoding, serialization, the CLI (``python -m paillier_tpu_torch.cli``)
+and multi-device sharding on ``torch.distributed`` (:mod:`.parallel`:
+``make_mesh``, ``shard_batch``, ``sharded_aggregate``,
+``distributed_combine``, DDLEQ's ``mesh=``), on the CPU (plain torch) or on a CUDA device
 (kernels B1-B4, built from ``csrc/`` with nvcc at first use).  The
 names are the JAX package's.  Entry points that make ciphertexts take
 an explicit ``device``; the homomorphic operations and the proofs work
@@ -47,6 +49,8 @@ from .ops.encoding import (decode_fixed_point, decode_signed,
                            encode_fixed_point, encode_signed)
 from .ops.serialize import (ciphertext_from_bytes, ciphertext_to_bytes,
                             key_from_json, public_key_to_json)
+from .parallel import (distributed_combine, make_mesh, shard_batch,
+                       sharded_aggregate)
 from .zk.ddleq import DDLEQProof
 from .zk.ddleq import prove as prove_ddleq
 from .zk.ddleq import verify as verify_ddleq
@@ -61,4 +65,6 @@ __all__ = ["host", "montgomery", "vpu", "Config", "get_config", "set_config",
            "serialize", "decode_fixed_point", "decode_signed",
            "encode_fixed_point", "encode_signed", "ciphertext_from_bytes",
            "ciphertext_to_bytes", "key_from_json", "public_key_to_json",
-           "DDLEQProof", "prove_ddleq", "verify_ddleq"]
+           "DDLEQProof", "prove_ddleq", "verify_ddleq",
+           "distributed_combine", "make_mesh", "shard_batch",
+           "sharded_aggregate"]

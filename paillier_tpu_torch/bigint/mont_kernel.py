@@ -31,7 +31,7 @@ from .montgomery import MontCtx, mont_ctx_arrays, mont_pow_digits_plain
 __all__ = ["mont_pow_b4", "mont_pow_digits_plain", "load", "MAX_LIMBS"]
 
 SOURCE = cuda_build.CSRC / "limb_modexp.cu"
-MAX_LIMBS = 256                  # 4096-bit moduli (n^2 of 2048-bit keys)
+MAX_LIMBS = 512                  # 8192-bit moduli (n^2 of 4096-bit keys)
 SMEM_MAX = 232448                # shared memory a block may use (227 KB)
 WORDS_PER_LANE = (1, 2, 3, 4, 8)  # the cases of limb_modexp_launch
 BLOCK_THREADS = 128              # threads of a block (rows x lanes)
@@ -67,9 +67,11 @@ def lanes_per_row(nw: int, rows: int, sms: int) -> int:
     H100 (132 SMs; PERF.md §6) at L = 128 on 512 to 8192 rows, at L = 256
     on 256 to 4096 and at L = 64 on 64 and 256 per-row moduli: the
     fastest count fell to the next fewer lanes where those reach between
-    5.8 and 6.8 warps an SM (at L = 256 between 3.9 and 7.8)."""
+    5.8 and 6.8 warps an SM (at L = 256 between 3.9 and 7.8).  Rows
+    that no lane count holds without padding (129 to 224 words) take 32
+    lanes, padded by :func:`padded_words`."""
     lanes = [t for t in (4, 8, 16, 32) if (t <= nw or t == 4)
-             and padded_words(nw, t) // t in WORDS_PER_LANE]
+             and -(-nw // t) in WORDS_PER_LANE] or [32]
     for t in lanes:
         if rows * t >= WARPS_PER_SM * 32 * sms:
             return t
@@ -77,9 +79,12 @@ def lanes_per_row(nw: int, rows: int, sms: int) -> int:
 
 
 def padded_words(nw: int, tpi: int) -> int:
-    """Words of a row as the kernel holds it: nw rounded up to a multiple
-    of ``tpi`` (the extra words are zero, and R grows with them)."""
-    return -(-nw // tpi) * tpi
+    """Words of a row as the kernel holds it at ``tpi`` lanes: ``tpi``
+    times the fewest words a lane in :data:`WORDS_PER_LANE` that hold nw
+    (the extra words are zero, and R grows with them); nw rounded up to a
+    multiple of ``tpi`` where no case holds it."""
+    w = -(-nw // tpi)
+    return tpi * next((c for c in WORDS_PER_LANE if c >= w), w)
 
 
 def rows_per_block(row_bytes: int, max_rows: int) -> int:

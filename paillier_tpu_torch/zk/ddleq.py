@@ -27,8 +27,11 @@ half-width ladders mod p^3 and mod q^3 and a Garner recombine
 this module's cache, never in the public-key ``DeviceKey``.  A secret key
 without factors proves at full width.
 
-Departures from the JAX package: no ``mesh=`` (the multi-device path
-comes with ``parallel``), no ``window=`` (B1's window is
+With ``mesh=`` (:func:`..parallel.make_mesh`) the flat-axis stages run
+sharded over the mesh's batch axis and are gathered, so every rank holds
+the proof of one process (:func:`_shard_flat`).
+
+Departure from the JAX package: no ``window=`` (B1's window is
 ``Config.sliding_window``, B2's is 4).
 
 Proof fields are int64 limb tensors [B, S, limbs]; ``to_ints`` /
@@ -38,12 +41,13 @@ Proof fields are int64 limb tensors [B, S, limbs]; ``to_ints`` /
 from __future__ import annotations
 
 import functools
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..bigint import host
 from ..bigint import limbmm as lm
@@ -55,6 +59,8 @@ from ..core.keys import (LEVEL_ONE, LEVEL_TWO, Ciphertext, PublicKey,
                          SecretKey, decode_batch, encode_batch)
 from ..ops import random as prand
 from ..ops.sha256 import concat_be, limbs_to_be_bytes, sha256_bytes
+from ..parallel.collective import _all_gather
+from ..parallel.mesh import BATCH_AXIS, axis
 
 
 @dataclass
@@ -198,9 +204,41 @@ def _flat(ct: Ciphertext, L: int, device) -> torch.Tensor:
     return ct.c.reshape(-1, 3 * L).to(device)
 
 
+def _shard_flat(mesh, fn, *arrays, group=None):
+    """Run ``fn(*arrays)`` on this rank's contiguous block of the arrays'
+    leading (flattened proof x instance) axis, sharded over the mesh's
+    batch axis, and gather every output over that axis, so each rank
+    holds the whole result.  Every DDLEQ stage is elementwise over that
+    axis: the gathers are the only collectives.  ``group`` is the batch
+    group to gather over (default the mesh's; the pipeline gives each
+    worker its own).  Raises ValueError when the flat batch does not
+    divide the mesh."""
+    n_dev = mesh.size()
+    B0 = arrays[0].shape[0]
+    if B0 % n_dev:
+        raise ValueError(f"flat batch {B0} must divide the {n_dev}-device "
+                         "mesh (pad the proof batch)")
+    size, i = axis(mesh, BATCH_AXIS)
+    blk = B0 // size
+    outs = fn(*(a[i * blk:(i + 1) * blk] for a in arrays))
+    if group is None:
+        group = mesh.get_group(BATCH_AXIS)
+    if isinstance(outs, torch.Tensor):
+        return _all_gather(outs, group).flatten(0, 1)
+    return tuple(_all_gather(o, group).flatten(0, 1) for o in outs)
+
+
+def _stage_runner(mesh, group=None):
+    """How a prove / verify runs its flat-axis stages: whole, or sharded
+    over ``mesh`` (:func:`_shard_flat`)."""
+    if mesh is None:
+        return lambda fn, *arrays: fn(*arrays)
+    return functools.partial(_shard_flat, mesh, group=group)
+
+
 def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
           a_list: Sequence[int], b_list: Sequence[int], secpar: int,
-          rng=None, *, use_crt: bool = True) -> DDLEQProof:
+          rng=None, *, mesh=None, use_crt: bool = True) -> DDLEQProof:
     """ProveDDLEQ (ddleq.go:27-40, 55-127), batched over proofs and
     instances on the device of ``ct1``.  Requires the secret key
     (randomness extraction).
@@ -208,7 +246,19 @@ def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
     ``use_crt`` runs the three per-(proof, instance) ladders mod n^3 and
     y^(n^2) through the p^3/q^3 split (bit-identical proofs).  Launches
     on a CUDA device: B1 7, B2 8, B4 1 with the split; B1 6, B2 5, B4 1
-    without.  The same ``rng`` state gives the JAX package's proof."""
+    without.  The same ``rng`` state gives the JAX package's proof.
+
+    With ``mesh`` (:func:`..parallel.make_mesh`), every rank calls it
+    with the whole chunk and the same ``rng`` state: the commitment and
+    response stages run on this rank's block of the flat axis and are
+    gathered, the per-proof work runs on every rank, and every rank
+    returns the proof of one process, bit for bit (same launches)."""
+    return _prove(sk, ct1, ct2, a_list, b_list, secpar, rng, use_crt,
+                  _stage_runner(mesh))
+
+
+def _prove(sk, ct1, ct2, a_list, b_list, secpar, rng, use_crt,
+           run) -> DDLEQProof:
     rng = rng or prand.make_rng()
     if ct1.level != LEVEL_TWO or ct2.level != LEVEL_TWO:
         raise ValueError("DDLEQ operates on level-2 (nested) ciphertexts")
@@ -253,14 +303,18 @@ def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
             return crt.pow(base, digits)
         return dk.pow(LEVEL_TWO, base, digits, B2_WINDOW)
 
-    # commitments: x^n, y^(n^2), alpha = ct1^(x^n) * y^(n^2), the
-    # challenge bits (ddleq.go:81-91)
-    xn = dk.pow_int(LEVEL_ONE, X2, n)                          # [BS, 2L]
-    yn2 = (crt.pow_shared(Y3, n2) if crt is not None
-           else dk.pow_int(LEVEL_TWO, Y3, n2))                 # [BS, 3L]
-    xd = limbs_to_digits(xn, B2_WINDOW)
-    alpha = dk.mul(LEVEL_TWO, pow_n3(c1_rep, xd), yn2)
-    sel = (_challenge_bits(c2_rep, X, Y, alpha) != 0)[:, None]
+    def commit_stage(x2, y3, c1r, c2r):
+        """x^n, y^(n^2), alpha = ct1^(x^n) * y^(n^2), the challenge bits
+        (ddleq.go:81-91)."""
+        xn = dk.pow_int(LEVEL_ONE, x2, n)                      # [., 2L]
+        yn2 = (crt.pow_shared(y3, n2) if crt is not None
+               else dk.pow_int(LEVEL_TWO, y3, n2))             # [., 3L]
+        alph = dk.mul(LEVEL_TWO, pow_n3(c1r, limbs_to_digits(xn, B2_WINDOW)),
+                      yn2)
+        return xn, alph, _challenge_bits(c2r, x2[:, :L], y3[:, :L], alph)
+
+    xn, alpha, chal = run(commit_stage, X2, Y3, c1_rep, c2_rep)
+    sel = (chal != 0)[:, None]
 
     # e = chal ? x * a^{-1} mod n^2 : x (ddleq.go:94-99); a^{-1} is one
     # per-proof host batch inversion
@@ -275,13 +329,16 @@ def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
     TI = encode_batch(tinv, 3 * L, device=dev).repeat_interleave(S, dim=0)
     S3_rep = S3.repeat_interleave(S, dim=0)
 
-    # responses (ddleq.go:94-115)
-    e = torch.where(sel, dk.mul(LEVEL_ONE, X2, AI), X2)        # [BS, 2L]
-    ed = limbs_to_digits(dk.pow_int(LEVEL_ONE, e, n), B2_WINDOW)
-    t_inv_pow = pow_n3(TI, ed)                                 # t^{-e^n}
-    s_xn = pow_n3(S3_rep, xd)
-    f_true = dk.mul(LEVEL_TWO, dk.mul(LEVEL_TWO, Y3, s_xn), t_inv_pow)
-    f = torch.where(sel, f_true, Y3)
+    def response_stage(selb, x2, y3, ai, ti, s3r, xnr):
+        """The e and f responses (ddleq.go:94-115)."""
+        e_out = torch.where(selb, dk.mul(LEVEL_ONE, x2, ai), x2)   # [., 2L]
+        ed = limbs_to_digits(dk.pow_int(LEVEL_ONE, e_out, n), B2_WINDOW)
+        t_inv_pow = pow_n3(ti, ed)                                  # t^{-e^n}
+        s_xn = pow_n3(s3r, limbs_to_digits(xnr, B2_WINDOW))
+        f_true = dk.mul(LEVEL_TWO, dk.mul(LEVEL_TWO, y3, s_xn), t_inv_pow)
+        return e_out, torch.where(selb, f_true, y3)
+
+    e, f = run(response_stage, sel, X2, Y3, AI, TI, S3_rep, xn)
 
     def shape(v):
         return v.reshape(B, S, v.shape[-1])
@@ -290,10 +347,16 @@ def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
 
 
 def verify(pk: PublicKey, ct1: Ciphertext, ct2: Ciphertext,
-           proof: DDLEQProof) -> List[bool]:
+           proof: DDLEQProof, *, mesh=None) -> List[bool]:
     """VerifyDDLEQProof (ddleq.go:44-53, 129-153), batched on the device
     of ``ct1``: one bool per proof (all S instances must check).
-    Launches on a CUDA device: B1 2, B2 1."""
+    Launches on a CUDA device: B1 2, B2 1.  With ``mesh``, every rank
+    checks its block of the flat axis and the [B*S] verdicts are gathered
+    (the one collective); every rank returns all the verdicts."""
+    return _verify(pk, ct1, ct2, proof, _stage_runner(mesh))
+
+
+def _verify(pk, ct1, ct2, proof, run) -> List[bool]:
     dev = ct1.c.device
     dk = pk.device(dev)
     L = dk.L
@@ -310,18 +373,35 @@ def verify(pk: PublicKey, ct1: Ciphertext, ct2: Ciphertext,
     c1_rep = c1.repeat_interleave(S, dim=0)
     c2_rep = c2.repeat_interleave(S, dim=0)
 
-    sel = (_challenge_bits(c2_rep, X, Y, alpha) != 0)[:, None]
-    en = dk.pow_int(LEVEL_ONE, E, n)                           # e^n mod n^2
-    fn2 = dk.pow_int(LEVEL_TWO, F, n2)                         # f^(n^2)
-    base = torch.where(sel, c2_rep, c1_rep)
-    powed = dk.pow(LEVEL_TWO, base, limbs_to_digits(en, B2_WINDOW),
-                   B2_WINDOW)
-    check = dk.mul(LEVEL_TWO, powed, fn2)
-    ok = (check == alpha).all(dim=-1).reshape(B, S).all(dim=1)
-    return [bool(v) for v in ok.tolist()]
+    def check_stage(x, y, alph, e_in, f_in, c1r, c2r):
+        selb = (_challenge_bits(c2r, x, y, alph) != 0)[:, None]
+        en = dk.pow_int(LEVEL_ONE, e_in, n)                    # e^n mod n^2
+        fn2 = dk.pow_int(LEVEL_TWO, f_in, n2)                  # f^(n^2)
+        powed = dk.pow(LEVEL_TWO, torch.where(selb, c2r, c1r),
+                       limbs_to_digits(en, B2_WINDOW), B2_WINDOW)
+        return (dk.mul(LEVEL_TWO, powed, fn2) == alph).all(dim=-1)
+
+    ok = run(check_stage, X, Y, alpha, E, F, c1_rep, c2_rep)
+    return [bool(v) for v in ok.reshape(B, S).all(dim=1).tolist()]
 
 
-def pipeline_prove_verify(sk: SecretKey, jobs, secpar: int, *,
+def _worker_groups(mesh, workers: int) -> list:
+    """One group over this rank's batch axis for each of ``workers``
+    pipeline slots, created in the same order on every rank (each
+    worker's collectives then run in one order on every rank)."""
+    size, _ = axis(mesh, BATCH_AXIS)
+    rows = mesh.mesh.reshape(-1, size).tolist()   # batch is the last axis
+    me = dist.get_rank()
+    mine = []
+    for _ in range(workers):
+        for ranks in rows:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                mine.append(g)
+    return mine
+
+
+def pipeline_prove_verify(sk: SecretKey, jobs, secpar: int, *, mesh=None,
                           workers: int = 2,
                           verify_pk: PublicKey | None = None):
     """Prove and verify a stream of chunks, chunk i's host work (native
@@ -331,26 +411,47 @@ def pipeline_prove_verify(sk: SecretKey, jobs, secpar: int, *,
     ``jobs`` is an iterable of (ct1, ct2, a_list, b_list, rng) chunk
     tuples.  Two worker threads: while one blocks on a readback or runs
     the GMP inverses (which release the GIL), the other's launches keep
-    the card busy.  Both workers launch on the caller's current stream
-    of each chunk's device, so every tensor is made and read in one
-    stream order.  Run one chunk serially first: the engines and plans
-    are built on first use.  Yields one List[bool] of per-proof verdicts
-    per chunk, in order."""
+    the card busy.  Chunk j goes to worker j mod ``workers``, which takes
+    its chunks in order; with ``mesh`` each worker gathers over a group
+    of its own, so every rank issues each group's collectives in one
+    order.  Both workers launch on the caller's current stream of each
+    chunk's device, so every tensor is made and read in one stream order.
+    Run one chunk serially first: the engines and plans are built on
+    first use.  Yields one List[bool] of per-proof verdicts per chunk, in
+    order."""
     pk = verify_pk or sk.public()
+    items = []                     # the streams are read in this thread
+    for job in jobs:
+        dev = job[0].c.device
+        items.append((job, torch.cuda.current_stream(dev)
+                      if dev.type == "cuda" else None))
+    groups = (_worker_groups(mesh, workers) if mesh is not None
+              else [None] * workers)
+    futs = [Future() for _ in items]
 
-    def tagged():
-        # Executor.map draws the jobs in the calling thread
-        for job in jobs:
-            dev = job[0].c.device
-            yield job, (torch.cuda.current_stream(dev)
-                        if dev.type == "cuda" else None)
+    def slot(w):
+        run = _stage_runner(mesh, groups[w])
+        for j in range(w, len(items), workers):
+            (ct1, ct2, a_l, b_l, rng), stream = items[j]
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else nullcontext()):
+                    proof = _prove(sk, ct1, ct2, a_l, b_l, secpar, rng,
+                                   True, run)
+                    futs[j].set_result(_verify(pk, ct1, ct2, proof, run))
+            except Exception as exc:
+                for k in range(j, len(items), workers):
+                    futs[k].set_exception(exc)
+                return
 
-    def one(item):
-        (ct1, ct2, a_l, b_l, rng), stream = item
-        with (torch.cuda.stream(stream) if stream is not None
-              else nullcontext()):
-            proof = prove(sk, ct1, ct2, a_l, b_l, secpar, rng)
-            return verify(pk, ct1, ct2, proof)
-
-    with ThreadPoolExecutor(max_workers=workers) as ex:
-        yield from ex.map(one, tagged())
+    try:
+        with ThreadPoolExecutor(max_workers=workers) as ex:
+            slots = [ex.submit(slot, w) for w in range(workers)]
+            for fut in futs:
+                yield fut.result()
+            for fut in slots:
+                fut.result()
+    finally:
+        if mesh is not None:
+            for g in groups:
+                dist.destroy_process_group(g)

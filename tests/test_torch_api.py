@@ -76,10 +76,11 @@ def test_modulus_width_limit_is_the_specs():
 
 def test_b4_limb_error_names_the_modulus():
     """Kernel B4's width check (run before any launch) names the modulus
-    bits: a 8192-bit key's n takes 512 limbs."""
-    ctx = make_mont_ctx(_pk(8192).n, device="cpu")
+    bits: a 8208-bit modulus takes 513 limbs, one over the limit; a
+    8192-bit one (n^2 of a 4096-bit key) fits."""
+    ctx = make_mont_ctx(_pk(8208).n, device="cpu")
     with pytest.raises(ValueError, match=r"kernel B4 takes moduli of at most "
-                       r"4096 bits \(256 limbs\), got a 8192-bit modulus in "
-                       r"512 limbs"):
+                       r"8192 bits \(512 limbs\), got a 8208-bit modulus in "
+                       r"513 limbs"):
         mont_kernel.check_width(ctx)
-    mont_kernel.check_width(make_mont_ctx(_pk(4096).n, device="cpu"))
+    mont_kernel.check_width(make_mont_ctx(_pk(8192).n, device="cpu"))

@@ -257,19 +257,24 @@ def test_wrong_inputs_raise_256(case256):
 
 
 def test_dropped_window_and_mesh_arguments_raise_256(case256):
-    """The JAX package's ``window`` and ``mesh`` arguments are not
-    ported: a caller that passes them gets a TypeError."""
+    """The JAX package's ``window`` argument is not ported: a caller that
+    passes it gets a TypeError.  ``mesh=None`` is accepted (the
+    single-process path: the same proof and verdicts)."""
     c = case256
     args = (c["sk"], c["ct1"], c["ct2"], c["a"], c["b"], SECPAR,
             random.Random(1))
     with pytest.raises(TypeError):
         zd.prove(*args, 4)
     with pytest.raises(TypeError):
-        zd.prove(*args, mesh=None)
-    with pytest.raises(TypeError):
         zd.verify(c["pk"], c["ct1"], c["ct2"], c["proof"], 4)
     with pytest.raises(TypeError):
         list(zd.pipeline_prove_verify(c["sk"], [], SECPAR, 4))
+    assert _same(zd.prove(*args[:-1], random.Random(9), mesh=None),
+                 c["proof"])
+    assert zd.verify(c["pk"], c["ct1"], c["ct2"], c["proof"],
+                     mesh=None) == [True] * 3
+    assert list(zd.pipeline_prove_verify(c["sk"], [], SECPAR,
+                                         mesh=None)) == []
 
 
 # ---------------------------------------------------------------------------

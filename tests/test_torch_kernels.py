@@ -1109,6 +1109,151 @@ def test_threshold_on_cuda(cuda_device):
     assert all(thr.verify_proof(p) for p in proofs[:2])
 
 
+def test_b4_wide_rows_take_eight_words_a_lane():
+    """Rows of 129 to 256 words (L = 257 to 512 limbs, moduli up to 8192
+    bits, n^2 of a 4096-bit key) run 32 lanes a row, padded to 256 words
+    (8 a lane, the kernel's widest case) whatever the batch; rows up to
+    128 words and fewer lanes keep nw rounded up to a multiple of the
+    lanes."""
+    for nw in range(129, 257):
+        for rows in (1, 5, 4096, 10 ** 6):
+            assert mk.lanes_per_row(nw, rows, 132) == 32
+        assert mk.padded_words(nw, 32) == 256
+    assert [mk.padded_words(nw, 32) for nw in (1, 33, 97, 128)] == [
+        32, 64, 128, 128]
+    assert (mk.padded_words(128, 16), mk.padded_words(100, 8)) == (128, 104)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8192, 6144])
+def test_kernel_b4_l512_verification_keys_on_cuda(cuda_device, bits):
+    """Kernel B4 at L = 512 (n^2 of a 4096-bit key; 32 lanes of 8 words)
+    and L = 384 (padded to 512): the verification keys of a (5, 3) key,
+    5 rows of one base with per-row exponents delta * s_i of ~8,200 bits,
+    through ThresholdKeyGenerator(4096)._verification_keys (one launch)
+    equal to the kernel called directly; the last 4 digits bit-identical
+    to the plain ladder on the card, rows 0 and 4 equal to Python's pow
+    (an 8,200-bit exponent at 8,192 bits takes seconds on the host)."""
+    from paillier_tpu_torch.threshold import ThresholdKeyGenerator
+    rng = random.Random(bits)
+    m = _odd(rng, bits)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    nw = ctx.n_limbs // 2
+    assert (mk.lanes_per_row(nw, 5, 132), mk.padded_words(nw, 32)) == (32, 256)
+    v = rng.randrange(2, m)
+    shares = [rng.getrandbits(bits) for _ in range(5)]
+    exps = [120 * s for s in shares]
+    before = mk.mont_pow_b4.launches
+    vk = ThresholdKeyGenerator(4096, 5, 3, device=cuda_device
+                               )._verification_keys(v, shares, 120, m)
+    assert mk.mont_pow_b4.launches == before + 1
+    nd = n_digits_for_bits(max(e.bit_length() for e in exps), 4)
+    dig = torch.as_tensor(np.stack([exp_digits(e, 4, nd) for e in exps]),
+                          device=cuda_device)
+    x = torch.as_tensor(host.ints_to_limbs([v] * 5, ctx.n_limbs)
+                        .astype(np.int64), device=cuda_device)
+    got = mk.mont_pow_b4(ctx, x, dig, 4)
+    assert host.limbs_to_ints(got.cpu().numpy()) == vk
+    assert torch.equal(mk.mont_pow_b4(ctx, x, dig[:, -4:], 4),
+                       tmont.mont_pow_digits_plain(ctx, x, dig[:, -4:], 4))
+    assert [vk[0], vk[4]] == [pow(v, exps[0], m), pow(v, exps[4], m)]
+
+
+def _parallel_case(dev):
+    """Inputs at 256 bits for the two-rank and NCCL tests, and what one
+    process on ``dev`` makes of them: the aggregate of 8 ciphertexts at
+    levels 1 and 2, the plaintexts of 4 threshold ciphertexts (64-bit
+    (4, 3) key), and DDLEQ proofs of 2 nested ciphertexts (secpar 8)."""
+    import dataclasses
+
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch.core.keys import Ciphertext, decode_batch
+    from paillier_tpu_torch.threshold import ThresholdKeyGenerator
+    from paillier_tpu_torch.zk import ddleq as zd
+    from torch_ranks import (aggregate_body, combine_body, ddleq_body)
+    skey, pk = pt.keygen(256, random.Random(0x9A), device_primes=False)
+    rng = random.Random(0x9B)
+    vals = [rng.randrange(1000) for _ in range(8)]
+    cts = {lv: pt.Encryptor(pk, lv, rng=rng, device=dev).encrypt(vals).c
+           for lv in (1, 2)}
+    keys = ThresholdKeyGenerator(64, 4, 3, random.Random(0x9C),
+                                 device=dev).generate()
+    tpk = keys[0].public()
+    ms = [rng.randrange(tpk.n) for _ in range(4)]
+    tct = pt.Encryptor(tpk, rng=rng, device=dev).encrypt(ms).c
+    ct1 = pt.nested_encrypt(pk, [rng.randrange(pk.n) for _ in range(2)], rng,
+                            device=dev)
+    ct2, a_l, b_l = pt.homomorphic.nested_randomize(pk, ct1, rng)
+    want = dict(
+        sums={lv: decode_batch(pt.homomorphic.aggregate(
+            pk, Ciphertext(c=c, level=lv)).c[None])[0]
+            for lv, c in cts.items()},
+        ms=ms,
+        proofs={crt: zd.prove(skey, ct1, ct2, a_l, b_l, 8, random.Random(0x9D),
+                              use_crt=crt) for crt in (True, False)})
+    calls = [
+        (aggregate_body, (dataclasses.replace(pk),
+                          {lv: c.cpu().numpy() for lv, c in cts.items()},
+                          "cuda")),
+        (combine_body, ([dataclasses.replace(k) for k in keys],
+                        tct.cpu().numpy(), 2, "cuda")),
+        (ddleq_body, (dataclasses.replace(skey), ct1.c.cpu().numpy(),
+                      ct2.c.cpu().numpy(), a_l, b_l, 8, 0x9D, (1, 2, 1),
+                      "cuda"))]
+    return calls, want
+
+
+def _check_parallel(results, want):
+    """Every rank's results equal one process's, with exact launches:
+    aggregate none; combine B1 2 (its two servers), B2 1 (their Lagrange
+    powers); prove with and without the split B1 13, B2 13, B4 2;
+    verify B1 2, B2 1."""
+    none = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    for agg, comb, dd in results:
+        assert agg["sums"] == want["sums"] and agg["on_device"]
+        assert agg["launches"] == none
+        assert comb["plain"] == want["ms"]
+        assert comb["launches"] == dict(none, B1=2, B2=1)
+        for crt, proof in want["proofs"].items():
+            for f in ("x", "y", "alpha", "e", "f"):
+                assert np.array_equal(dd["proofs"][crt][f],
+                                      getattr(proof, f).cpu().numpy()), f
+        assert dd["prove_launches"] == dict(none, B1=13, B2=13, B4=2)
+        assert dd["verify_launches"] == dict(none, B1=2, B2=1)
+        assert (dd["ok"], dd["bad"]) == ([True, True], [True, False])
+        assert dd["piped"] == [[True], [True, True], [True]]
+
+
+@pytest.mark.cuda
+def test_parallel_two_gloo_ranks_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks share one card (gloo gathers host copies):
+    sharded_aggregate at levels 1 and 2, distributed_combine on a
+    (2 servers x 1 batch) mesh and DDLEQ with mesh= (prove with and
+    without the split, verify, a tampered instance, the 3-chunk
+    pipeline) equal one process's results on the card."""
+    from torch_ranks import bodies, run_ranks
+    for mod in (sk, mx, fb, mk):
+        mod.load()                  # built before the ranks start
+    calls, want = _parallel_case(cuda_device)
+    _check_parallel(run_ranks(bodies, 2, calls, init_dir=tmp_path,
+                              timeout=300), want)
+
+
+@pytest.mark.cuda
+def test_parallel_nccl_across_cards(cuda_device, tmp_path):
+    """One NCCL rank a card (device tensors gathered on the card): the
+    same checks as the two gloo ranks, on every card of the machine."""
+    from torch_ranks import bodies, run_ranks
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("NCCL across ranks needs two or more cards")
+    for mod in (sk, mx, fb, mk):
+        mod.load()
+    calls, want = _parallel_case(cuda_device)
+    _check_parallel(run_ranks(bodies, world, calls, init_dir=tmp_path,
+                              timeout=300, backend="nccl"), want)
+
+
 # -- probes P1-P5 (paillier_tpu_torch/probes, csrc/probe_*.cu) ------------
 
 @pytest.mark.parametrize("lanes", [768, 384])

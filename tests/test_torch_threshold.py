@@ -184,13 +184,23 @@ def test_generator_validation():
 
 def test_b4_width_error_at_4096_bits():
     """Device verification keys of a 4096-bit key need n^2 at 512 limbs,
-    over kernel B4's 256: a named error when the generator is built."""
-    with pytest.raises(ValueError, match=r"4096-bit threshold key.*B4.*"
-                       r"4096 bits \(256 limbs\)"):
-        tkg.ThresholdKeyGenerator(4096, 5, 3, device=CPU)
-    tkg.ThresholdKeyGenerator(4096, 5, 3, device=CPU,
+    kernel B4's limit: the generator builds, and its ladder at L = 512
+    (the plain version on the CPU) equals pow on a 4096-bit n's n^2 for a
+    few rows with short exponents.  An 8192-bit key (n^2 at 1,024 limbs)
+    raises a named error when the generator is built."""
+    with pytest.raises(ValueError, match=r"8192-bit threshold key.*B4.*"
+                       r"8192 bits \(512 limbs\)"):
+        tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU)
+    tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU,
                               device_verification_keys=False)
-    tkg.ThresholdKeyGenerator(2048, 5, 3)            # L = 256 fits
+    gen = tkg.ThresholdKeyGenerator(4096, 5, 3, device=CPU)
+    rng = random.Random(0x4096)
+    n = rng.getrandbits(4096) | (1 << 4095) | 1
+    n2 = n * n
+    v = rng.randrange(2, n2)
+    shares = [rng.getrandbits(9) for _ in range(3)]
+    assert gen._verification_keys(v, shares, 6, n2) == [
+        pow(v, 6 * s, n2) for s in shares]
 
 
 @pytest.fixture(scope="module")
