@@ -24,7 +24,7 @@ non-zero):
                 B1: k = 64 (256-bit modulus); the main path's shapes,
                 4096 rows at k = 320 (r^n * G^m mod n^2) and k = 192
                 (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3)
-                and 64 rows at k = 704 (a random odd 8192-bit modulus,
+                and 64 rows at k = 704 (n^2 of phase 13's 4096-bit key,
                 a 2048-bit exponent, fin), these two against plain on all
                 rows on the top 1,024 bits of their exponents, timed at
                 full depth and against pow; each k also the other way
@@ -64,6 +64,13 @@ non-zero):
                 verification keys equal the kernel called directly (timed)
                 and pow (computed in 5 worker processes while phase 3
                 runs: a plain ladder at L = 512 is far too slow).
+                B4 at L = 768 (n^3 of phase 13's 4096-bit key, 32 lanes
+                of 12 words): 64 rows against plain over 32 digits and
+                pow; the 2,048 digits of n^2 on the same rows timed, 4
+                rows against pow (in the same worker processes), with
+                lanes per row, us per product, the bound
+                (ops/profiling.py's RooflineModel) and ptxas' registers
+                and spills of the 12-word instantiation.
                 DDLEQ's shapes on bench.py's chunk (128 proofs x secpar
                 40 = 5,120 rows): B1 and B2 at k = 256 (the prover's
                 p^3 half: y^(n^2 mod p^2(p-1)), 1,024 per-row digits)
@@ -79,7 +86,9 @@ non-zero):
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
                 Decryptor(sk, crt=True, device="cuda") on all of them:
                 every plaintext round-trips, 16 ciphertexts equal
-                (1 + m*n) * r^n mod n^2 on the host.
+                (1 + m*n) * r^n mod n^2 on the host; then the driver entry
+                point dryrun.entry() (the limb route's encryption, one B4
+                at L = 64) on the card: all 64 rows equal the host formula.
   5. homomorphic -- level 1, batch 4096: add, sub, const_mult (shared
                 and per-element 2048-bit scalars), randomize, aggregate
                 over a 65,536-row tile, aggregate_streaming over 4 chunks,
@@ -150,19 +159,41 @@ non-zero):
                 verifies.  Each rank times
                 each step between synchronisations and counts its
                 launches from 0 (set-up 0; the aggregate seam 0; prove
-                B1 7, B2 8, B4 1; verify B1 2, B2 1); any rank's failure
+                B1 7, B2 8, B4 1; verify B1 2, B2 1); then the driver's
+                dryrun_multichip(2) on the same ranks (its two lines
+                printed, its launches held); any rank's failure
                 or a count off by one fails the run.  Prints each step's
                 seconds a rank, the aggregate seam (sharded_aggregate
                 less a warm local tree) and the warm sharded chunk beside
-                phase 11's serial chunk.
-Phases 4-12 each set the launch counters to 0 just before their
+                phase 11's serial chunk.  Then python -m
+                paillier_tpu_torch.scaling_probe's rank body on the same
+                two ranks and on one (this process, a gloo group of one):
+                its JSON line at 1 and 2 ranks, labelled as ranks
+                sharing one card, not a scaling figure.
+ 13. level2-4096 -- the limb route at full width: a 4096-bit key
+                (keygen(4096, random.Random(4096), device_primes=False))
+                at level 2, n^3 of 12,288 bits past the RNS engine, on 64
+                rows: Encryptor(pk, 2) (8 rows equal (1+n)^m * r^(n^2)
+                mod n^3, r^(n^2) from the worker processes), Decryptor(sk,
+                2) round trip, nested_encrypt -> nested_add ->
+                nested_decrypt gives x + y; seconds a step; B4 1 each,
+                B1 1 in nested_encrypt and nested_decrypt (level 1).
+ 14. trace   -- ops/profiling.py's trace (torch.profiler, CPU and CUDA)
+                around one phase-4 encrypt + CRT decrypt of 4096 and one
+                serial phase-11 chunk (into build/trace/trace.json): the
+                card's busy share in each window (the union of its kernel
+                intervals over the window's span), the 5 kernels with
+                most device time, and the count of B1-B4 kernel events,
+                which must equal the launch counters (B1 12, B2 9, B4 1).
+Phases 4-14 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3 and B4 launches differ from the exact count its entry
 points make fails (the prime search's B4 count is the number of Fermat
 batches it reports; phase 10: keys B4 1, partial decryption B1 3,
 combine B2 1, the proofs B1 3 and B2 35; phase 11: the serial chunk
 B1 9, B2 9, B4 1, the checks B1 15, B2 14, B4 2, the pipeline B1 18,
-B2 18, B4 2; phase 12: each rank's, above, and none in this process),
+B2 18, B4 2; phase 12: each rank's, above, and none in this process;
+phase 13: B1 2, B4 5; phase 14: B1 12, B2 9, B4 1),
 and phase 9 fails unless every probe kernel launched.
 Then lines of the threshold and DDLEQ shapes' bounds, one JSON line
 describing the kernels, the card's name and power limit, and as the
@@ -199,6 +230,10 @@ DD_CHUNK = 128         # bench.py's ddleq configuration: proofs a chunk,
 DD_SECPAR = 40         # instances a proof,
 DD_CHUNKS = 2          # and chunks (256 proofs) in its pipeline
 DD_ROWS = DD_CHUNK * DD_SECPAR
+# a phase-12 rank's launches (B1, B2, B3, B4) in dryrun_multichip(2)
+DRYRUN_LAUNCHES = [20, 34, 0, 2]
+L4_BITS = 4096         # the limb route's key: level 2 (n^3) past the RNS
+L4_ROWS = 64           # engine, on kernel B4 at L = 768; rows a call
 THR_SEED = 0x7357      # bench.py's threshold configuration: its rng seed
 # and its fixed 1024-bit safe primes p = 2p' + 1 (bench.py:49-50)
 SAFE_P1024 = int(
@@ -266,6 +301,8 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
     from paillier_tpu_torch.bigint import (fixed_base_kernel, modexp_kernel,
                                            mont_kernel, sliding_kernel)
     from paillier_tpu_torch.core.keys import decode_batch
+    from paillier_tpu_torch.dryrun import dryrun_multichip
+    from paillier_tpu_torch.scaling_probe import probe_rank
     from paillier_tpu_torch.parallel import (make_mesh, shard_batch,
                                              sharded_aggregate)
     from paillier_tpu_torch.zk import ddleq as zd
@@ -332,6 +369,11 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
         out["digests"].append({f: hashlib.sha256(
             getattr(proof, f).cpu().numpy().tobytes()).hexdigest()
             for f in ("x", "y", "alpha", "e", "f")})
+    # the driver's dry run on the same two ranks (rank 0 prints its lines)
+    out["dryrun"] = step("dryrun_multichip(2)",
+                         lambda: dryrun_multichip(2, "cuda"))
+    # and the scaling probe's rank body (its launches are not held)
+    out["scaling"] = probe_rank(rank, world, "cuda")
     return out
 
 
@@ -344,6 +386,7 @@ def main() -> None:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
 
@@ -377,6 +420,9 @@ def main() -> None:
     from paillier_tpu_torch.threshold import decrypt as thr_dec
     from paillier_tpu_torch.threshold import zkp as thr_zkp
     from paillier_tpu_torch import probes
+    from paillier_tpu_torch import dryrun as pt_dryrun
+    from paillier_tpu_torch import scaling_probe
+    from paillier_tpu_torch.ops import profiling
     from paillier_tpu_torch.ops.oracle import oracle_bit
     from paillier_tpu_torch.zk import ddleq as zd
     from paillier_tpu_torch.zk.ddleq import DDLEQProof
@@ -513,6 +559,22 @@ def main() -> None:
     vk_exps = [120 * s_ for s_ in vk_shares]           # delta = 5! = 120
     vk_pool = ProcessPoolExecutor(5, mp_context=mp.get_context("spawn"))
     vk_pows = vk_pool.map(pow, [vk_v] * 5, vk_exps, [vk_mod] * 5)
+    # the limb route's 4096-bit key (phase 13) and the host side of its
+    # checks, in the same workers (a pow at 12,288 bits with an 8,192-bit
+    # exponent takes seconds on one core): B4 at L = 768 on L4_ROWS bases
+    # with e = n^2 (phase 3: 4 rows), and r^(n^2) mod n^3 of the first
+    # HOST_ROWS encryptions of phase 13
+    t0 = time.perf_counter()
+    sk4, _ = keygen(L4_BITS, random.Random(L4_BITS), device_primes=False)
+    l4rng = random.Random(L4_BITS + 1)
+    x4s = [l4rng.randrange(sk4.n3) for _ in range(L4_ROWS)]
+    m4s = [l4rng.randrange(sk4.n2) for _ in range(L4_ROWS)]
+    r4s = random_units(sk4.n, L4_ROWS, l4rng)
+    l4_pows = vk_pool.map(pow, x4s[:4] + r4s[:HOST_ROWS],
+                          [sk4.n2] * (4 + HOST_ROWS),
+                          [sk4.n3] * (4 + HOST_ROWS))
+    phase("kernel", f"keygen({L4_BITS}) for the limb route in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # B1 and B2 at k = 64
     t0 = time.perf_counter()
@@ -721,10 +783,13 @@ def main() -> None:
           f"{b1_tile(eng_n3, L2_BATCH, sched, b1w_ms)}")
     b1_other_fin(eng_n3, True)
 
-    n8192 = rng.getrandbits(8192) | (1 << 8191) | 1
-    eng_w = Rns2Engine(n8192, device=dev)
-    if eng_w.spec.k != 704:
-        fail(f"8192-bit modulus gave k={eng_w.spec.k}, expected 704")
+    # k = 704: n^2 of the limb route's 4096-bit key (an 8192-bit
+    # modulus), on that key's own level-1 engine, which phase 13 reuses
+    eng_w = sk4.device(dev).rns(1)
+    n8192 = eng_w.spec.N
+    if eng_w.spec.k != 704 or n8192.bit_length() != 8192:
+        fail(f"{n8192.bit_length()}-bit modulus gave k={eng_w.spec.k}, "
+             f"expected 704")
     xs = [rng.randrange(n8192) for _ in range(64)]
     fs = [rng.randrange(n8192) for _ in range(64)]
     x, fin = residues(eng_w, xs), residues(eng_w, fs)
@@ -745,7 +810,7 @@ def main() -> None:
           f"all equal to pow; kernel {ms:.3f} ms; "
           f"{b1_tile(eng_w, 64, sched, ms)}")
     b1_other_fin(eng_w, False)
-    del eng_w, x, fin
+    del x, fin
 
     b2_lib = mx_mod.load()
 
@@ -1072,7 +1137,46 @@ def main() -> None:
           f"verification keys of a {2 * KEY_BITS}-bit (5, 3) key): "
           f"ThresholdKeyGenerator({2 * KEY_BITS}) equals the kernel and "
           f"pow; {ms:.3f} ms; {b4_shape(Lw, 5, ndw, ms)}")
-    del got, xl
+    # B4 at L = 768 (n^3 of the 4096-bit key; 32 lanes of 12 words): the
+    # L4_ROWS bases against plain over 32 digits; the full exponent n^2
+    # (level-2 encryption's ladder) on the same rows, timed, 4 rows equal
+    # to pow (computed in the worker processes)
+    ctx_w3 = sk4.device(dev).ctx_for_level(2)
+    L3 = ctx_w3.n_limbs
+    xl3 = limbs(x4s, L3)
+    e3 = rng.getrandbits(128) | (1 << 127)
+    d3s = torch.as_tensor(exp_digits(e3, 4, 32), device=dev)
+    got, b4w_ms, b4w_plain_ms = compare(
+        "B4", lambda: b4(ctx_w3, xl3, d3s, 4),
+        lambda: b4_plain(ctx_w3, xl3, d3s, 4),
+        f"L={L3} rows={L4_ROWS} shared 32 digits")
+    check_limbs(got, x4s, [e3] * 4, [sk4.n3] * 4, 4, "B4 L=768, 32 digits")
+    nd3 = n_digits_for_bits(sk4.n2.bit_length(), 4)
+    d3 = torch.as_tensor(exp_digits(sk4.n2, 4, nd3), device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    got = b4(ctx_w3, xl3, d3, 4)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    l4_pows = list(l4_pows)
+    if bhost.limbs_to_ints(got[:4].cpu().numpy()) != l4_pows[:4]:
+        fail("B4 L=768: x^(n^2) mod n^3 != Python pow")
+    stats["B4"]["times"].append({"shape": f"L={L3} rows={L4_ROWS} shared "
+                                 f"{nd3} digits (no plain run)", "ms": ms,
+                                 "plain_ms": None})
+    roof3 = profiling.RooflineModel(
+        16 * L3, sk4.n2.bit_length(), 0, 4, sliding=False, rows=L4_ROWS,
+        chip=profiling.detect_chip())
+    w12 = [ln for ln in ptxas_report(mk_mod.build_log) if "words=12" in ln]
+    phase("kernel", f"B4 L={L3}, {L4_ROWS} rows: 32 digits bit-identical to "
+          f"plain (kernel {b4w_ms:.3f} ms, plain {b4w_plain_ms:.3f} ms) and "
+          f"to pow; {nd3} digits (n^2 of a {L4_BITS}-bit key): {ms:.3f} ms, "
+          f"4 rows equal pow; {b4_shape(L3, L4_ROWS, nd3, ms)}; bound "
+          f"{roof3.bound_s() * 1e3:.4f} ms by {roof3.bound_by} "
+          f"({100 * roof3.bound_s() * 1e3 / ms:.2f}%); ptxas "
+          + ("; ".join(w12) or "(cached build: no log)"))
+    del got, xl, xl3
 
     launches = {kname: 0 for kname in wrappers}
     op_s: dict = {}
@@ -1155,6 +1259,20 @@ def main() -> None:
           f"{BATCH / t_enc:.1f} enc/s; CRT decrypt: {t_dec:.4f} s, "
           f"{BATCH / t_dec:.1f} dec/s; all {BATCH} round-trip, 16 equal "
           f"the host formula")
+
+    # the driver entry point: entry()'s limb-route encryption (one B4
+    # ladder at L = 64) on the card equals (1 + m*n) * r^n mod n^2
+    fn_e, args_e = pt_dryrun.entry(dev)
+    _, pk_e = keygen(512, random.Random(0xF1A6), device=dev)
+    out_e, t_e = run_path("main", lambda: fn_e(*args_e), {"B4": 1})
+    n_e, n2_e = pk_e.n, pk_e.n2
+    if decode_batch(out_e) != [
+            (1 + m * n_e) * pow(r, n_e, n2_e) % n2_e
+            for m, r in zip(decode_batch(args_e[0]), decode_batch(args_e[1]))]:
+        fail("dryrun.entry(): ciphertexts != (1 + m*n) * r^n mod n^2")
+    phase("main", f"dryrun.entry(): {tuple(out_e.shape)} on {out_e.device} "
+          f"in {t_e * 1e3:.3f} ms, all {out_e.shape[0]} equal the host "
+          f"formula")
 
     # -- 5. homomorphic, level 1 -------------------------------------------
     t0 = time.perf_counter()
@@ -1735,7 +1853,8 @@ def main() -> None:
                    "distributed_combine": none,
                    f"prove ({HOST_ROWS} proofs, first)": [7, 8, 0, 1],
                    f"verify ({HOST_ROWS} proofs, first)": [2, 1, 0, 0],
-                   "prove": [7, 8, 0, 1], "verify": [2, 1, 0, 0]}
+                   "prove": [7, 8, 0, 1], "verify": [2, 1, 0, 0],
+                   "dryrun_multichip(2)": DRYRUN_LAUNCHES}
     digests = [{f: hashlib.sha256(getattr(pr, f).cpu().numpy().tobytes())
                 .hexdigest() for f in fields} for pr in (crt8, proof)]
     for r, out in enumerate(ranks):
@@ -1751,6 +1870,9 @@ def main() -> None:
                  f"proof from the same seed")
         if out["ok"] != [[True] * HOST_ROWS, [True] * DD_CHUNK]:
             fail(f"parallel rank {r}: a sharded DDLEQ proof did not verify")
+        if not out["dryrun"][-1].startswith("dryrun_multichip(2): OK"):
+            fail(f"parallel rank {r}: dryrun_multichip(2) said "
+                 f"{out['dryrun']}")
         for name, counts_ in out["launches"].items():
             for kname, v in zip(wrappers, counts_):
                 launches[kname] += v
@@ -1773,6 +1895,154 @@ def main() -> None:
           f"phase 11's serial chunk and verifies; every rank's launches "
           f"exact; {t_par:.2f} s with the spawn "
           f"({time.perf_counter() - t0:.1f} s in all)")
+    for line in ranks[0]["dryrun"]:
+        phase("parallel", f"rank 0: {line}")
+    # the scaling probe's rank body on 1 rank (this process, a gloo group
+    # of one) and on the two ranks above: the seams' overhead at 2 ranks
+    # sharing one card, not a scaling figure
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1)
+        try:
+            one = scaling_probe.probe_rank(0, 1, "cuda")
+        finally:
+            dist.destroy_process_group()
+    for outs in ([one], [r["scaling"] for r in ranks]):
+        phase("parallel", f"scaling probe, {len(outs)} rank(s) sharing one "
+              f"card ({card}; not a scaling figure): "
+              f"{json.dumps(scaling_probe.record(outs))}")
+    phase("parallel", f"scaling probe ({time.perf_counter() - t0:.1f} s for "
+          f"the rank of one)")
+
+    # -- 13. level2-4096: the limb route at full width ---------------------
+    # the 4096-bit key at level 2 (n^3: 12,288 bits, past the RNS engine):
+    # Encryptor / Decryptor and the nested functions on kernel B4 at
+    # L = 768, level 1 on B1 at k = 704.  Every step takes the secret key
+    # (a public key too): its one DeviceKey holds the level-1 engine that
+    # phase 3 built (≈ 5 s of host set-up at k = 704)
+    t0 = time.perf_counter()
+    dk4 = sk4.device(dev)
+    if not dk4.limb_route(2) or dk4.limb_route(1):
+        fail(f"a {L4_BITS}-bit key: level 2 must take the limb route and "
+             f"level 1 the RNS engine")
+    enc4 = Encryptor(sk4, 2, device=dev, rng=random.Random(SEED + 14))
+    dec4 = Decryptor(sk4, 2, device=dev)
+    n4 = sk4.n
+    q4rng = random.Random(SEED + 15)
+    xs4 = [q4rng.randrange(n4) for _ in range(L4_ROWS)]
+    ys4 = [q4rng.randrange(n4) for _ in range(L4_ROWS)]
+    yct4 = Encryptor(sk4, device=dev, rng=q4rng).encrypt(ys4)
+    dec4.decrypt(enc4.encrypt(m4s[:1], r4s[:1]))     # the host plans, warm
+    torch.cuda.synchronize()
+    phase("level2-4096", f"Encryptor(pk, 2) / Decryptor(sk, 2) of a "
+          f"{L4_BITS}-bit key built on the limb route and warmed on 1 row, "
+          f"{L4_ROWS} level-1 encryptions "
+          f"({time.perf_counter() - t0:.2f} s)")
+
+    def l4_ops():
+        # encrypt, decrypt and nested_add: one B4 ladder each (mod n^3);
+        # nested_encrypt and nested_decrypt: one B1 ladder (level 1, mod
+        # n^2 at k = 704) and one B4
+        c2 = timed("encrypt", lambda: enc4.encrypt(m4s, r4s), 0, 0, 0, 1)
+        back = timed("decrypt", lambda: dec4.decrypt(c2), 0, 0, 0, 1)
+        nx = timed("nested_encrypt", lambda: nested_encrypt(
+            sk4, xs4, q4rng, device=dev), 1, 0, 0, 1)
+        na = timed("nested_add", lambda: hom.nested_add(sk4, nx, yct4),
+                   0, 0, 0, 1)
+        return c2, back, timed("nested_decrypt", lambda: nested_decrypt(
+            sk4, na, device=dev), 1, 0, 0, 1)
+
+    (c4, back4, add4), t_l4 = run_path("level2-4096", l4_ops,
+                                       {"B1": 2, "B4": 5})
+    l4_line = op_line()
+    n4_2, n4_3 = sk4.n2, sk4.n3
+    if decode_batch(c4.c[:HOST_ROWS]) != [
+            (1 + m * n4 + m * (m - 1) // 2 * n4_2) * rn % n4_3
+            for m, rn in zip(m4s[:HOST_ROWS], l4_pows[4:])]:
+        fail(f"{L4_BITS}-bit level-2 ciphertexts != (1+n)^m * r^(n^2) "
+             f"mod n^3")
+    if back4 != m4s:
+        fail(f"{L4_BITS}-bit Decryptor(sk, 2) did not round-trip")
+    if add4 != [(a + b) % n4 for a, b in zip(xs4, ys4)]:
+        fail(f"{L4_BITS}-bit nested_add did not decrypt to x + y")
+    phase("level2-4096", f"seconds ({L4_ROWS} rows, {card}): {l4_line}; "
+          f"all round-trip, {HOST_ROWS} ciphertexts equal the host formula, "
+          f"nested_add decrypts to x + y "
+          f"({time.perf_counter() - t0:.1f} s in all)")
+
+    # -- 14. trace: the card's busy share under torch.profiler -------------
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(here, "build", "trace")
+    windows = ("phase-4 encrypt + CRT decrypt", "phase-11 serial chunk")
+    for w in wrappers.values():
+        w.launches = 0
+    rec_fn = torch.profiler.record_function
+    with profiling.trace(trace_dir):
+        with rec_fn("window: " + windows[0]):
+            tr_out = dec.decrypt(enc.encrypt(ms, rs))
+            torch.cuda.synchronize()
+        with rec_fn("window: " + windows[1]):
+            tr_pr = zd.prove(skey, dct1, dct2, da, db, DD_SECPAR,
+                             random.Random(SEED + 12))
+            tr_ok = zd.verify(pk, dct1, dct2, tr_pr)
+            torch.cuda.synchronize()
+    tr_counts = counts()
+    for kname in tr_counts:
+        launches[kname] += tr_counts[kname]
+    if tr_out != ms or tr_ok != [True] * DD_CHUNK:
+        fail("a traced window's results are wrong")
+    if tr_counts != {"B1": 12, "B2": 9, "B3": 0, "B4": 1}:
+        fail(f"the traced windows launched {tr_counts}, expected B1 12, "
+             f"B2 9, B4 1")
+    t_parse = time.perf_counter()
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = {e["name"][len("window: "):]: (e["ts"], e["ts"] + e["dur"])
+             for e in events if e.get("ph") == "X"
+             and str(e.get("name", "")).startswith("window: ")
+             and e.get("cat") == "user_annotation"}
+    kern = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") == "kernel"]
+    if not kern:
+        phase("trace", f"device busy share: not measured (torch.profiler "
+              f"recorded no CUDA kernel among {len(events)} events)")
+    else:
+        for name in windows:
+            a, b = spans[name]
+            iv = sorted((max(a, e["ts"]), min(b, e["ts"] + e["dur"]))
+                        for e in kern
+                        if e["ts"] < b and e["ts"] + e["dur"] > a)
+            busy, end = 0.0, a
+            for lo, hi in iv:
+                if hi > end:
+                    busy += hi - max(lo, end)
+                    end = hi
+            phase("trace", f"{name}: device busy {100 * busy / (b - a):.1f}% "
+                  f"of {(b - a) / 1e3:.1f} ms ({card}; under the profiler)")
+        per: dict = {}
+        for e in kern:
+            short = e["name"].replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            per[short] = per.get(short, 0.0) + e["dur"]
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        phase("trace", "top kernels by device time: " + "; ".join(
+            f"{k[:70]} {v / 1e3:.2f} ms" for k, v in top))
+        ev_counts = {kname: sum(sym in e["name"] for e in kern)
+                     for kname, sym in (("B1", "rns2_sliding_kernel"),
+                                        ("B2", "rns2_modexp_kernel"),
+                                        ("B3", "rns2_fixed_base_kernel"),
+                                        ("B4", "limb_modexp_kernel"))}
+        if ev_counts != tr_counts:
+            fail(f"the trace holds kernel events {ev_counts}, the launch "
+                 f"counters say {tr_counts}")
+        mb = os.path.getsize(os.path.join(trace_dir, "trace.json")) / 1e6
+        phase("trace", f"kernel events B1-B4 {ev_counts} equal the launch "
+              f"counters; {len(kern)} kernels, {len(events)} events, "
+              f"{mb:.1f} MB, parsed in {time.perf_counter() - t_parse:.1f} s "
+              f"({time.perf_counter() - t0:.1f} s in all)")
+    del events, kern
+
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
     # -- bounds: the least time the card could take for each timed call ----

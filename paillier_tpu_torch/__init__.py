@@ -12,7 +12,8 @@ nested decryption, the homomorphic operations (``homomorphic.add``,
 ``sub``, ``const_mult``, ``randomize``, ``aggregate``,
 ``aggregate_streaming``, the nested ones), ``extract_randomness``,
 (t, l)-threshold Paillier (:mod:`.threshold`: keys, partial decryption,
-combining, the share-decryption proofs with a batched SHA-256), DDLEQ
+combining, the share-decryption proofs with a batched SHA-256; the JAX
+root's threshold names are exported here too), DDLEQ
 proofs of nested re-encryption (:mod:`.zk.ddleq`), fixed-point
 encoding, serialization, the CLI (``python -m paillier_tpu_torch.cli``)
 and multi-device sharding on ``torch.distributed`` (:mod:`.parallel`:
@@ -49,8 +50,17 @@ from .ops.encoding import (decode_fixed_point, decode_signed,
                            encode_fixed_point, encode_signed)
 from .ops.serialize import (ciphertext_from_bytes, ciphertext_to_bytes,
                             key_from_json, public_key_to_json)
-from .parallel import (distributed_combine, make_mesh, shard_batch,
-                       sharded_aggregate)
+from .parallel import collective, mesh
+from .parallel.collective import distributed_combine, sharded_aggregate
+from .parallel.mesh import make_mesh, shard_batch
+from .threshold.decrypt import (combine, combine_ints, partial_decrypt,
+                                partial_decrypt_int)
+from .threshold.keygen import ThresholdKeyGenerator, generate_threshold_keys
+from .threshold.keys import (PartialDecryption, PartialDecryptionZKP,
+                             ThresholdPublicKey, ThresholdSecretKey)
+from .threshold.safe_prime import generate_safe_prime, is_safe_prime
+from .threshold.zkp import (combine_with_zkp, partial_decrypt_with_zkp,
+                            verify_decryption, verify_proof)
 from .zk.ddleq import DDLEQProof
 from .zk.ddleq import prove as prove_ddleq
 from .zk.ddleq import verify as verify_ddleq
@@ -66,5 +76,12 @@ __all__ = ["host", "montgomery", "vpu", "Config", "get_config", "set_config",
            "encode_fixed_point", "encode_signed", "ciphertext_from_bytes",
            "ciphertext_to_bytes", "key_from_json", "public_key_to_json",
            "DDLEQProof", "prove_ddleq", "verify_ddleq",
-           "distributed_combine", "make_mesh", "shard_batch",
-           "sharded_aggregate"]
+           "collective", "mesh", "distributed_combine", "make_mesh",
+           "shard_batch", "sharded_aggregate", "combine", "combine_ints",
+           "partial_decrypt", "partial_decrypt_int", "ThresholdKeyGenerator",
+           "generate_threshold_keys", "PartialDecryption",
+           "PartialDecryptionZKP", "ThresholdPublicKey", "ThresholdSecretKey",
+           "generate_safe_prime", "is_safe_prime", "combine_with_zkp",
+           "partial_decrypt_with_zkp", "verify_decryption", "verify_proof"]
+
+__version__ = "0.1.0"

@@ -31,9 +31,9 @@ from .montgomery import MontCtx, mont_ctx_arrays, mont_pow_digits_plain
 __all__ = ["mont_pow_b4", "mont_pow_digits_plain", "load", "MAX_LIMBS"]
 
 SOURCE = cuda_build.CSRC / "limb_modexp.cu"
-MAX_LIMBS = 512                  # 8192-bit moduli (n^2 of 4096-bit keys)
+MAX_LIMBS = 768                  # 12,288-bit moduli (n^3 of 4096-bit keys)
 SMEM_MAX = 232448                # shared memory a block may use (227 KB)
-WORDS_PER_LANE = (1, 2, 3, 4, 8)  # the cases of limb_modexp_launch
+WORDS_PER_LANE = (1, 2, 3, 4, 8, 12)  # the cases of limb_modexp_launch
 BLOCK_THREADS = 128              # threads of a block (rows x lanes)
 WARPS_PER_SM = 6                 # warps a batch should give each SM
 
@@ -68,10 +68,13 @@ def lanes_per_row(nw: int, rows: int, sms: int) -> int:
     on 256 to 4096 and at L = 64 on 64 and 256 per-row moduli: the
     fastest count fell to the next fewer lanes where those reach between
     5.8 and 6.8 warps an SM (at L = 256 between 3.9 and 7.8).  Rows
-    that no lane count holds without padding (129 to 224 words) take 32
-    lanes, padded by :func:`padded_words`."""
+    that no lane count holds without padding (129 to 224 and 257 to 352
+    words) take 32 lanes, padded by :func:`padded_words`.  Twelve words a
+    lane serve only rows past 256 words (n^3 of a 4096-bit key: 384), at
+    32 lanes; narrower rows keep the counts timed above."""
+    cases = WORDS_PER_LANE if nw > 256 else WORDS_PER_LANE[:-1]
     lanes = [t for t in (4, 8, 16, 32) if (t <= nw or t == 4)
-             and -(-nw // t) in WORDS_PER_LANE] or [32]
+             and -(-nw // t) in cases] or [32]
     for t in lanes:
         if rows * t >= WARPS_PER_SM * 32 * sms:
             return t

@@ -8,11 +8,11 @@ modulo an odd n, with R = 2^(16 L):
   [L], or [B, L] for a batch whose rows have their own moduli (the
   stacked contexts that the JAX package ``vmap``s over in keygen's Fermat
   batch).
-* :func:`mont_mul`, :func:`to_mont`, :func:`from_mont`: SOS Montgomery
-  products in plain torch.  The column sums of a product are formed in
-  one batched step (an outer product summed along its anti-diagonals, in
-  int64) instead of the JAX package's Horner scan; the integers are the
-  same.
+* :func:`mont_mul`, :func:`to_mont`, :func:`from_mont`, :func:`modmul`:
+  SOS Montgomery products in plain torch.  The column sums of a product
+  are formed in one batched step (an outer product summed along its
+  anti-diagonals, in int64, in row chunks at wide moduli) instead of the
+  JAX package's Horner scan; the integers are the same.
 * :func:`mont_pow_digits`: the fixed-window ladder, shared or per-row
   digits, shared or per-row moduli.  A CUDA tensor runs kernel B4
   (``mont_kernel.mont_pow_b4``), a CPU tensor :func:`mont_pow_digits_plain`;
@@ -22,10 +22,11 @@ modulo an odd n, with R = 2^(16 L):
 * :func:`exp_digits`, :func:`n_digits_for_bits`, :func:`limbs_to_digits`:
   MSB-first base-2^window digits of a host integer or a limb tensor.
 
-The JAX module's ``modmul``, ``mod_wide`` and ``exact_div`` are not
-ported: on the port's paths a multiply with a constant operand is one
-int8 Toeplitz product (:mod:`limbmm`) and a product of two ciphertexts is
-``Rns2Engine.mul``.
+The JAX module's ``mod_wide`` and ``exact_div`` are not ported: on the
+port's paths a multiply with a constant operand is one int8 Toeplitz
+product (:mod:`limbmm`).  A product of two ciphertexts is
+``Rns2Engine.mul`` where the RNS engine takes the modulus, and
+:func:`modmul` on the limb route past it (``DeviceKey.mul``).
 """
 
 from __future__ import annotations
@@ -88,13 +89,28 @@ def stack_mont_ctx(moduli, n_limbs: int, *, device) -> MontCtx:
 # Core Montgomery ops (plain torch)
 # ---------------------------------------------------------------------------
 
+# int64 elements of one outer-product step of _mul_cols (256 MB): a wider
+# batch is taken in row chunks
+_MUL_CHUNK_ELEMS = 1 << 25
+
+
 def _mul_cols(a: torch.Tensor, b: torch.Tensor, out_len: int) -> torch.Tensor:
     """Column sums of a*b (limbs < 2^16) truncated to out_len columns, in
     one step: the outer product [.., La, Lb] with row i shifted right by
     i (pad to La + Lb - 1 columns and re-stride), summed over i.  Each
-    column is < min(La, Lb) * 2^32: exact in int64."""
+    column is < min(La, Lb) * 2^32: exact in int64.  Where the step of
+    the whole batch would pass :data:`_MUL_CHUNK_ELEMS` elements (wide
+    moduli on many rows), the rows go in chunks."""
     La, Lb = a.shape[-1], b.shape[-1]
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    rows = int(np.prod(batch)) if batch else 1
+    step = max(1, _MUL_CHUNK_ELEMS // (La * (La + Lb)))
+    if rows > step:
+        a2 = a.expand(batch + (La,)).reshape(-1, La)
+        b2 = b.expand(batch + (Lb,)).reshape(-1, Lb)
+        return torch.cat([_mul_cols(a2[i:i + step], b2[i:i + step], out_len)
+                          for i in range(0, rows, step)]).reshape(
+                              batch + (out_len,))
     outer = a[..., :, None] * b[..., None, :]                  # [.., La, Lb]
     W = La + Lb - 1
     padded = torch.nn.functional.pad(outer.expand(batch + (La, Lb)),
@@ -133,6 +149,14 @@ def mont_mul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n_pad = torch.nn.functional.pad(ctx.n.expand(hi.shape[:-1] + (L,)),
                                     (0, 1))
     return vpu.cond_sub(hi, n_pad)[..., :L]
+
+
+def modmul(ctx: MontCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain modular product a*b mod n of residues a, b < n (one extra
+    Montgomery product by R^2 fixes the R^-1), as
+    ``paillier_tpu.bigint.montgomery.modmul``."""
+    return mont_mul(ctx, mont_mul(ctx, a, b), ctx.r2.expand(
+        torch.broadcast_shapes(a.shape, ctx.r2.shape)))
 
 
 def to_mont(ctx: MontCtx, x: torch.Tensor) -> torch.Tensor:
@@ -198,9 +222,20 @@ def mont_pow_digits_plain(ctx: MontCtx, base: torch.Tensor, digits,
 def mont_pow_digits(ctx: MontCtx, base: torch.Tensor, digits,
                     window: int = 4) -> torch.Tensor:
     """Dispatcher: kernel B4 for a CUDA tensor, the plain ladder for a CPU
-    tensor (the wrapper decides by the base's device)."""
+    tensor (the wrapper decides by the base's device).  A base with more
+    than one batch axis (and per-element digits broadcast to its batch
+    shape) goes through the kernel flattened to rows, as the JAX package
+    flattens it for its Pallas kernel; the result has the base's shape."""
     from .mont_kernel import mont_pow_b4
-    return mont_pow_b4(ctx, base, digits, window)
+    lead, L = base.shape[:-1], base.shape[-1]
+    if len(lead) <= 1:
+        return mont_pow_b4(ctx, base, digits, window)
+    digits = torch.as_tensor(digits, device=base.device)
+    if digits.dim() > 1:
+        digits = digits.expand(lead + digits.shape[-1:]).reshape(
+            -1, digits.shape[-1])
+    return mont_pow_b4(ctx, base.reshape(-1, L), digits,
+                       window).reshape(lead + (L,))
 
 
 def mont_pow(ctx: MontCtx, base: torch.Tensor, e: int, window: int = 4

@@ -11,6 +11,11 @@ CRT path (level 1; not in the reference, bit-identical to its output):
 m = CRT(m_p, m_q) with m_p = L_p(c^(p-1) mod p^2) * h_p mod p, two
 half-width ladders.  At level 2 ``crt=True`` is dropped, as in the JAX
 package, and the generic path runs.
+
+Where the RNS engine cannot take n^(s+1) (``DeviceKey.limb_route``: level
+2 of a 4096-bit key) the generic path is :func:`decrypt_kernel`, the JAX
+package's limb Montgomery kernel: c^lambda on the fixed-window limb
+ladder (kernel B4 on a CUDA tensor), then the same recovery.
 """
 
 from __future__ import annotations
@@ -19,8 +24,9 @@ import torch
 
 from ..bigint import host, vpu
 from ..bigint import limbmm as lm
-from .keys import (DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, MIXED, Ciphertext,
-                   DeviceKey, SecretKey, decode_batch)
+from ..bigint import montgomery as mont
+from .keys import (DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, LIMB_WINDOW, MIXED,
+                   Ciphertext, DeviceKey, SecretKey, decode_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -29,6 +35,21 @@ from .keys import (DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, MIXED, Ciphertext,
 
 def _sub_one(x: torch.Tensor) -> torch.Tensor:
     return vpu.sub(x, vpu.one_like(x))[0]
+
+
+def decrypt_kernel(dk: DeviceKey, c: torch.Tensor, level: int, lam_digits,
+                   mu: lm.ModMulConstPlan, window: int = 4) -> torch.Tensor:
+    """Generic decryption on the limb route: c^lambda on the fixed-window
+    limb Montgomery ladder (kernel B4 on a CUDA tensor; lam_digits: the
+    MSB-first base-2^window digits of lambda), then the recovery.  c:
+    limbs [..., (s+1)L]; returns m limbs [..., sL].  The JAX function
+    takes lambda^-1 mod n^s as limbs and n*(2!)^-1 mod n^2 as an argument;
+    here ``mu`` is the plan of x * lambda^-1 mod n^s (as in
+    :func:`decrypt_kernel_rns`) and the second constant is the key's
+    (``DeviceKey.inv2fac_n2_plan``)."""
+    tmp = mont.mont_pow_digits(dk.ctx_for_level(level), c.to(torch.int64),
+                               lam_digits, window)
+    return _recover(dk, tmp, level, mu)
 
 
 def decrypt_kernel_rns(dk: DeviceKey, eng, c: torch.Tensor, level: int,
@@ -175,7 +196,9 @@ def crt_decrypt_kernel_mm(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
 class Decryptor:
     """Batched decryption for one secret key on one torch device: the
     generic recovery path at levels 1 and 2, or CRT (``crt=True``) at
-    level 1; ``crt`` is ignored at level 2, as in the JAX package."""
+    level 1; ``crt`` is ignored at level 2, as in the JAX package.  The
+    generic path's ladder runs on the RNS engine, or on the limb route
+    (:func:`decrypt_kernel`) past its width."""
 
     def __init__(self, sk: SecretKey, level: int = DEFAULT_LEVEL,
                  crt: bool = False, *, device="cuda"):
@@ -201,10 +224,17 @@ class Decryptor:
             ns = sk.n ** level
             mu = lm.ModMulConstPlan.build(pow(sk.lam, -1, ns), ns,
                                           level * self.dk.L, device=dev)
-            eng = self.dk.rns(level)
             lam = sk.lam
-            self._fn = lambda c: decrypt_kernel_rns(
-                self.dk, eng, c, level, lam, mu)
+            if self.dk.limb_route(level):
+                nd = mont.n_digits_for_bits(lam.bit_length(), LIMB_WINDOW)
+                lam_digits = torch.as_tensor(
+                    mont.exp_digits(lam, LIMB_WINDOW, nd), device=dev)
+                self._fn = lambda c: decrypt_kernel(
+                    self.dk, c, level, lam_digits, mu, LIMB_WINDOW)
+            else:
+                eng = self.dk.rns(level)
+                self._fn = lambda c: decrypt_kernel_rns(
+                    self.dk, eng, c, level, lam, mu)
 
     def decrypt(self, ct: Ciphertext) -> list[int]:
         return decode_batch(self.decrypt_array(ct))

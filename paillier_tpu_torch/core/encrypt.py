@@ -10,14 +10,19 @@ n^(s+1): constant-operand limb products (int8 Toeplitz matmuls,
 (paillier.go:213); the outputs are bit-identical.  r^(n^s) is the
 shared-exponent sliding-window ladder (kernel B1 on a CUDA tensor), and
 G^m rides its exit multiply: at level 1 G^m = 1 + m*n is made in residue
-space, at level 2 in limbs and converted once.  The port takes the RNS
-engine at every key size; the JAX package's limb-Montgomery branch for
-small keys is not ported.
+space, at level 2 in limbs and converted once.
 
 h_s^r is the comb over a batch-shared table of the fixed base h_s with
 per-element short exponents r < K = 2^(secparam/2) (reference:
 paillier.go:221-238): kernel B3 on a CUDA tensor, D multiplies and no
 squarings; G^m rides its exit multiply as in regular encryption.
+
+Where the RNS engine cannot take n^(s+1) (``DeviceKey.limb_route``: level
+2 of a 4096-bit key) the :class:`Encryptor` takes the JAX package's limb
+Montgomery kernels instead, :func:`encrypt_with_r_kernel` and
+:func:`alt_encrypt_with_r_kernel`: r^(n^s) and h_s^r on the fixed-window
+limb ladder (kernel B4 on a CUDA tensor), then one limb ``modmul`` by G^m.
+The JAX package picks its engine by backend; the port by width alone.
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import vpu
 from ..ops import random as prand
-from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, REGULAR,
-                   Ciphertext, DeviceKey, PublicKey, encode_batch)
+from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
+                   LIMB_WINDOW, REGULAR, Ciphertext, DeviceKey, PublicKey,
+                   encode_batch)
 
 # Digit width of the comb (kernel B3's table has 2^COMB_WINDOW entries per
 # digit; the JAX default window).
@@ -68,6 +74,33 @@ def gm_binomial(dk: DeviceKey, m: torch.Tensor, level: int) -> torch.Tensor:
     c, _ = vpu.add(s12, vpu.one_like(s12))
     n3 = encode_batch([dk.pk.n3], 3 * L + 1, device=c.device)[0]
     return vpu.cond_sub(c, n3.expand(c.shape))[..., :3 * L]
+
+
+def encrypt_with_r_kernel(dk: DeviceKey, m: torch.Tensor, r: torch.Tensor,
+                          level: int, ns_digits, window: int = 4
+                          ) -> torch.Tensor:
+    """c = G^m * r^(n^s) mod n^(s+1) on the limb route: r^(n^s) on the
+    fixed-window limb Montgomery ladder (kernel B4 on a CUDA tensor), then
+    one ``modmul`` by G^m.  m: limbs [..., sL]; r: limbs [..., (s+1)L]
+    (< n^(s+1)); ns_digits: MSB-first base-2^window digits of n^s."""
+    ctx = dk.ctx_for_level(level)
+    gm = gm_binomial(dk, m, level)
+    rn = mont.mont_pow_digits(ctx, r, ns_digits, window)
+    return mont.modmul(ctx, gm, rn)
+
+
+def alt_encrypt_with_r_kernel(dk: DeviceKey, m: torch.Tensor,
+                              r_digits: torch.Tensor, level: int,
+                              window: int = 4) -> torch.Tensor:
+    """c = G^m * h_s^r mod n^(s+1) on the limb route, with per-element
+    short exponents r < K (r_digits: int [..., D], MSB-first
+    base-2^window): h_s broadcast over the batch on the limb ladder
+    (kernel B4 on a CUDA tensor), then one ``modmul`` by G^m."""
+    ctx = dk.ctx_for_level(level)
+    gm = gm_binomial(dk, m, level)
+    hr = mont.mont_pow_fixed_base(ctx, dk.hs_for_level(level), r_digits,
+                                  window)
+    return mont.modmul(ctx, gm, hr)
 
 
 def encrypt_with_r_rns_kernel(dk: DeviceKey, eng, m: torch.Tensor,
@@ -132,8 +165,10 @@ class Encryptor:
     (h_s^r with short randomness r < K, paillier.go:221-238), at levels 1
     and 2.  ``window`` keeps the JAX signature's place and is ignored: the
     regular ladder is the sliding one, whose window is
-    Config.sliding_window, and the comb's digits are COMB_WINDOW bits (the
-    JAX default).
+    Config.sliding_window, the comb's digits are COMB_WINDOW bits (the
+    JAX default), and the limb route's ladders take LIMB_WINDOW.  The
+    engine (RNS, or the limb route past the RNS engine's width) is chosen
+    here, once.
     """
 
     def __init__(self, pk: PublicKey, level: int = DEFAULT_LEVEL,
@@ -151,6 +186,21 @@ class Encryptor:
         self.rng = rng or prand.make_rng()
         self.m_limbs = level * self.dk.L
         self.c_limbs = (level + 1) * self.dk.L
+        self._r_bits = pk.k.bit_length() - 1      # r < K = 2^(secparam/2)
+        if self.dk.limb_route(level):
+            if method == ALTERNATIVE:
+                self.dk.hs_for_level(level)
+                self._fn = lambda m, rd: alt_encrypt_with_r_kernel(
+                    self.dk, m, rd, level, LIMB_WINDOW)
+            else:
+                ns = pk.n ** level
+                nd = mont.n_digits_for_bits(ns.bit_length(), LIMB_WINDOW)
+                ns_digits = torch.as_tensor(
+                    mont.exp_digits(ns, LIMB_WINDOW, nd),
+                    device=self.dk.device)
+                self._fn = lambda m, r: encrypt_with_r_kernel(
+                    self.dk, m, r, level, ns_digits, LIMB_WINDOW)
+            return
         eng = self.dk.rns(level)
         nrow = None
         if level == LEVEL_ONE:
@@ -158,7 +208,6 @@ class Encryptor:
             nrow = torch.tensor([pk.n % mi for mi in spec.b1 + spec.b2],
                                 dtype=torch.int32, device=self.dk.device)
         if method == ALTERNATIVE:
-            self._r_bits = pk.k.bit_length() - 1   # r < K = 2^(secparam/2)
             table = self.dk.comb_table(level, COMB_WINDOW)
             self._fn = lambda m, rd: alt_encrypt_comb_kernel(
                 self.dk, eng, table, m, rd, level, nrow)

@@ -1,8 +1,15 @@
 """Key material and ciphertext containers.
 
 Host-side key objects hold Python-int values (control plane); the derived
-:class:`DeviceKey` holds the RNS engines of one public key on one torch
-device.
+:class:`DeviceKey` holds the RNS engines and limb Montgomery contexts of
+one public key on one torch device.
+
+The engine of a level is chosen by the width of its modulus n^(s+1)
+alone: the RNS engine where ``Rns2Spec`` takes it (at most
+``rns2.MAX_MODULUS_BITS`` bits), else the limb route, the limb Montgomery
+ladder (kernel B4 on a CUDA tensor) up to ``mont_kernel.MAX_LIMBS``
+limbs.  A 4096-bit key takes the RNS engine at level 1 (n^2: 8,192 bits)
+and the limb route at level 2 (n^3: 12,288 bits, 768 limbs).
 
 Reference parity: PublicKey/SecretKey/Ciphertext structure follows
 paillier.go:46-69; level handling follows paillier.go:403-414.
@@ -27,6 +34,9 @@ DEFAULT_LEVEL = LEVEL_ONE  # reference: paillier.go:42
 REGULAR = "regular"
 ALTERNATIVE = "alternative"
 MIXED = "mixed"
+
+# Digit width of the limb route's ladders (the JAX package's default)
+LIMB_WINDOW = 4
 
 
 @dataclass
@@ -107,9 +117,11 @@ class DeviceKey:
 
     Everything here is derived from the public key alone; secret-derived
     constants (lambda^-1, the CRT plans) stay with the Decryptor.  The RNS
-    engine of each level, each plan and each comb table are built on
-    first use (host-side prime search and matrices, then one copy to
-    ``device``)."""
+    engine of each level, each limb Montgomery context, each plan and
+    each comb table are built on first use (host-side prime search and
+    matrices, then one copy to ``device``).  :meth:`pow`,
+    :meth:`pow_int` and :meth:`mul` take the RNS engine or the limb route
+    by :meth:`limb_route`."""
 
     def __init__(self, pk: PublicKey, device):
         self.pk = pk
@@ -118,21 +130,41 @@ class DeviceKey:
         self._rns: dict = {}
         self._plans: dict = {}
 
+    def limb_route(self, level: int) -> bool:
+        """True where the RNS engine cannot take n^(s+1) (more than
+        ``rns2.MAX_MODULUS_BITS`` bits): that level runs on the limb
+        Montgomery ladder (kernel B4) and limb products."""
+        from ..bigint.rns2 import MAX_MODULUS_BITS
+        return self.pk.modulus_for_level(level).bit_length() > \
+            MAX_MODULUS_BITS
+
     def check_level(self, level: int) -> None:
-        """Raise ValueError if the RNS engine cannot take this key's
-        modulus n^(s+1) at ``level`` (``rns2.MAX_MODULUS_BITS``)."""
+        """Raise ValueError if neither engine takes this key's modulus
+        n^(s+1) at ``level``: past the RNS engine's width, the limb route
+        takes at most kernel B4's ``mont_kernel.MAX_LIMBS`` limbs."""
+        from ..bigint.mont_kernel import MAX_LIMBS
         from ..bigint.rns2 import MAX_MODULUS_BITS
         bits = self.pk.modulus_for_level(level).bit_length()
-        if bits > MAX_MODULUS_BITS:
+        if self.limb_route(level) and self.limbs_for_level(level) > MAX_LIMBS:
             raise ValueError(
                 f"a {self.pk.bits}-bit key at level {level} has a {bits}-bit "
-                f"modulus n^{level + 1}; the RNS engine takes moduli of at "
-                f"most {MAX_MODULUS_BITS} bits")
+                f"modulus n^{level + 1} ({self.limbs_for_level(level)} limbs);"
+                f" the RNS engine takes moduli of at most {MAX_MODULUS_BITS} "
+                f"bits and kernel B4 at most {16 * MAX_LIMBS} bits "
+                f"({MAX_LIMBS} limbs)")
 
     def rns(self, level: int):
-        """RNS engine for modulus n^(s+1), cached."""
+        """RNS engine for modulus n^(s+1), cached; raises ValueError where
+        the modulus is past ``rns2.MAX_MODULUS_BITS`` (the limb route's
+        levels have no RNS engine)."""
         if level not in self._rns:
-            self.check_level(level)
+            if self.limb_route(level):
+                from ..bigint.rns2 import MAX_MODULUS_BITS
+                bits = self.pk.modulus_for_level(level).bit_length()
+                raise ValueError(
+                    f"a {self.pk.bits}-bit key at level {level} has a "
+                    f"{bits}-bit modulus n^{level + 1}; the RNS engine takes "
+                    f"moduli of at most {MAX_MODULUS_BITS} bits")
             from ..bigint.engine import make_engine
             self._rns[level] = make_engine(self.pk.modulus_for_level(level),
                                            self.limbs_for_level(level),
@@ -142,10 +174,17 @@ class DeviceKey:
     def pow(self, level: int, base: torch.Tensor, digits, window: int = 4
             ) -> torch.Tensor:
         """base^e mod n^(s+1) on the RNS engine's fixed-window ladder
-        (kernel B2 on a CUDA tensor).
+        (kernel B2 on a CUDA tensor), or on the limb route the limb
+        Montgomery ladder (``montgomery.mont_pow_digits``: kernel B4 on a
+        CUDA tensor, the plain ladder on a CPU tensor).
 
         ``digits``: int [D] shared or [..., D] per element, MSB-first
         base-2^window; base: limbs [..., L_{s+1}].  Returns limbs."""
+        if self.limb_route(level):
+            from ..bigint import montgomery as mont
+            return mont.mont_pow_digits(
+                self.ctx_for_level(level), base.to(torch.int64),
+                torch.as_tensor(digits, device=base.device), window)
         eng = self.rns(level)
         out = eng.pow(eng.from_limbs(base), torch.as_tensor(digits), window)
         return self._widen(eng.to_limbs_mod(out), level)
@@ -154,10 +193,16 @@ class DeviceKey:
                 ) -> torch.Tensor:
         """pow with a host-int shared exponent, on the sliding-window
         odd-power ladder (``Rns2Engine.pow_shared``, kernel B1 on a CUDA
-        tensor; fewer multiplies than the fixed-window ladder).  Its window
-        is Config.sliding_window."""
+        tensor; fewer multiplies than the fixed-window ladder; its window
+        is Config.sliding_window), or on the limb route :meth:`pow` with
+        e's base-16 digits (the JAX package's window 4)."""
         if e == 0:
             return vpu.one_like(base)
+        if self.limb_route(level):
+            from ..bigint import montgomery as mont
+            nd = mont.n_digits_for_bits(e.bit_length(), LIMB_WINDOW)
+            return self.pow(level, base, mont.exp_digits(e, LIMB_WINDOW, nd),
+                            LIMB_WINDOW)
         eng = self.rns(level)
         out = eng.pow_shared(eng.from_limbs(base), e)
         return self._widen(eng.to_limbs_mod(out), level)
@@ -165,7 +210,12 @@ class DeviceKey:
     def mul(self, level: int, a: torch.Tensor, b: torch.Tensor
             ) -> torch.Tensor:
         """a * b mod n^(s+1) for two limb tensors (``Rns2Engine.mul``: two
-        Montgomery multiplies in residue space)."""
+        Montgomery multiplies in residue space; on the limb route
+        ``montgomery.modmul``, two limb Montgomery products)."""
+        if self.limb_route(level):
+            from ..bigint import montgomery as mont
+            return mont.modmul(self.ctx_for_level(level), a.to(torch.int64),
+                               b.to(torch.int64))
         eng = self.rns(level)
         out = eng.mul(eng.from_limbs(a), eng.from_limbs(b))
         return self._widen(eng.to_limbs_mod(out), level)
@@ -230,6 +280,22 @@ class DeviceKey:
                           lambda: build_fixed_base_table(
                               self.rns(level), self.hs_int_for_level(level),
                               nd, window))
+
+    def ctx_for_level(self, level: int):
+        """Limb Montgomery context of n^(s+1) at the ciphertext width
+        (2L or 3L limbs) on this device, cached: the limb route's
+        modulus."""
+        from ..bigint.montgomery import make_mont_ctx
+        return self._plan(("mont", level), lambda: make_mont_ctx(
+            self.pk.modulus_for_level(level), self.limbs_for_level(level),
+            device=self.device))
+
+    def hs_for_level(self, level: int) -> torch.Tensor:
+        """h_s as limbs [L_{s+1}] on this device, cached: the fixed base
+        of alternative encryption on the limb route."""
+        return self._plan(("hs limbs", level), lambda: encode_batch(
+            [self.hs_int_for_level(level)], self.limbs_for_level(level),
+            device=self.device)[0])
 
     def mont_ctx_n(self):
         """Limb Montgomery context of n at L limbs (kernel B4's modulus in

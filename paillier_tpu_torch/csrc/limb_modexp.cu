@@ -294,7 +294,7 @@ extern "C" int limb_modexp_row_bytes(int nw, int window) {
 }
 
 // Launch on `stream` with `tpi` lanes a row (a power of two, 4..32, that
-// divides nw into W = 1, 2, 3, 4 or 8 words a lane) and blocks of `rb`
+// divides nw into W = 1, 2, 3, 4, 8 or 12 words a lane) and blocks of `rb`
 // rows (rb * tpi <= MAX_THREADS); returns the cudaError_t of the
 // attribute call or of the launch (0 on success; cudaErrorInvalidValue
 // for a shape the kernel does not take).  base, out: int32 [B, 2 nw]
@@ -320,6 +320,7 @@ extern "C" int limb_modexp_launch(const void* base, const void* digits,
     case 3: return B4_LAUNCH(3);
     case 4: return B4_LAUNCH(4);
     case 8: return B4_LAUNCH(8);
+    case 12: return B4_LAUNCH(12);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef B4_LAUNCH

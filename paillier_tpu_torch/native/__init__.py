@@ -5,7 +5,9 @@ a byte-for-byte copy of ``paillier_tpu/native/hostmath.cpp``, compiled at
 first use with ``g++`` against the system ``libgmp.so.10`` (no GMP
 headers needed) into ``build/paillier_tpu_torch/`` beside the package,
 keyed by the source's hash, and loaded with ctypes.  It serves the host
-control plane: primality of key-generation candidates, modular inverses.
+control plane: primality of key-generation candidates, modular inverses,
+and the JAX loader's other wrappers (``powm``, ``powm_batch``, ``gcd``,
+``mulmod``).
 
 If ``g++`` or libgmp is missing, or ``PAILLIER_TPU_NO_NATIVE`` is set
 (the switch the JAX package reads, so both packages take the same path in
@@ -104,10 +106,16 @@ def _load():
         lib.pt_abi_version.restype = ci
         lib.pt_powm.argtypes = [u8p, sz, u8p, sz, u8p, sz, u8p]
         lib.pt_powm.restype = ci
+        lib.pt_powm_batch.argtypes = [u8p, sz, sz, u8p, sz, u8p, sz, u8p, ci]
+        lib.pt_powm_batch.restype = ci
         lib.pt_probab_prime.argtypes = [u8p, sz, ci]
         lib.pt_probab_prime.restype = ci
         lib.pt_invert.argtypes = [u8p, sz, u8p, sz, u8p]
         lib.pt_invert.restype = ci
+        lib.pt_gcd.argtypes = [u8p, sz, u8p, sz, u8p, sz]
+        lib.pt_gcd.restype = ci
+        lib.pt_mulmod.argtypes = [u8p, sz, u8p, sz, u8p, sz, u8p]
+        lib.pt_mulmod.restype = ci
         lib.pt_first_prime.argtypes = [u8p, sz, sz, ci, ci, ci]
         lib.pt_first_prime.restype = ctypes.c_long
         lib.pt_modinv_batch.argtypes = [u8p, sz, sz, u8p, sz, u8p, ci]
@@ -157,6 +165,25 @@ def powm(base: int, exp: int, mod: int) -> int:
     return int.from_bytes(bytes(out), "big")
 
 
+def powm_batch(bases, exp: int, mod: int, threads: int = 0) -> list:
+    """[b^exp mod mod for b in bases], multithreaded."""
+    lib = _require()
+    m = _be(mod)
+    ml = len(m)
+    stride = max(ml, max((b.bit_length() + 7) // 8 for b in bases))
+    flat = b"".join(_be(b, stride) for b in bases)
+    out = _out(ml * len(bases))
+    threads = threads or min(len(bases), os.cpu_count() or 1)
+    e = _be(exp)
+    rc = lib.pt_powm_batch(_buf(flat), len(bases), stride, _buf(e), len(e),
+                           _buf(m), ml, out, threads)
+    if rc != 0:
+        raise ValueError("powm_batch failed (zero modulus?)")
+    raw = bytes(out)
+    return [int.from_bytes(raw[i * ml:(i + 1) * ml], "big")
+            for i in range(len(bases))]
+
+
 def is_probable_prime(n: int, reps: int = 20) -> bool:
     """GMP probab_prime (BPSW + reps Miller-Rabin rounds)."""
     if n < 2:
@@ -177,6 +204,29 @@ def modinv(a: int, m: int) -> int:
         raise ValueError("modinv failed (zero modulus?)")
     if ok == 0:
         raise ValueError("base is not invertible for the given modulus")
+    return int.from_bytes(bytes(out), "big")
+
+
+def gcd(a: int, b: int) -> int:
+    lib = _require()
+    ab, bb = _be(a), _be(b)
+    outl = max(len(ab), len(bb))
+    out = _out(outl)
+    rc = lib.pt_gcd(_buf(ab), len(ab), _buf(bb), len(bb), out, outl)
+    if rc != 0:
+        raise ValueError("gcd result does not fit the output buffer")
+    return int.from_bytes(bytes(out), "big")
+
+
+def mulmod(a: int, b: int, m: int) -> int:
+    """(a * b) mod m."""
+    lib = _require()
+    ab, bb, mb = _be(a), _be(b), _be(m)
+    out = _out(len(mb))
+    rc = lib.pt_mulmod(_buf(ab), len(ab), _buf(bb), len(bb), _buf(mb),
+                       len(mb), out)
+    if rc != 0:
+        raise ValueError("mulmod failed (zero modulus?)")
     return int.from_bytes(bytes(out), "big")
 
 

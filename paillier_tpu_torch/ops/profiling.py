@@ -1,0 +1,202 @@
+"""Profiling and roofline accounting for the ladders on an NVIDIA card.
+
+The port of ``paillier_tpu.ops.profiling`` for the H100:
+
+* :func:`trace`: context manager around ``torch.profiler`` (CPU and CUDA
+  activity) that writes a Chrome trace (``trace.json``, loadable in
+  Perfetto or ``chrome://tracing``) of whatever runs inside it into
+  ``logdir``, and yields the profiler.
+* :class:`RooflineModel`: the least time the card could take for one
+  batched modular exponentiation, the larger of its operation term and
+  its bytes term, so that a measured time can be quoted as a share of
+  it.  The operation term is the int8 tensor-core issue of the RNS
+  ladders (kernels B1-B3: two base extensions of [2k] x [2k, 2k] a row
+  and Montgomery multiply, 8 k^2 multiply-adds) or the INT32 multiply
+  issue of the limb ladder (kernel B4: 2 nw^2 + nw 32 x 32 -> 64
+  multiply-adds a product, nw = 32-bit words of the modulus, each
+  multiply-add an ``IMAD.WIDE`` of two issues).  The bytes term reads
+  every input once and writes every output once at the HBM rate.
+
+The JAX module's TPU entries (v5e, v5p, v4), its v5e calibration of
+vector passes a multiply and its 128-lane padding are TPU layouts and
+have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ChipSpec:
+    """Peak rates of one card."""
+
+    name: str
+    int8_tops: float          # tensor-core int8, dense, tera-ops (MAC = 2)
+    imad_wide_gmacs: float    # 32x32->64 multiply-adds, giga a second
+    hbm_gbps: float           # HBM bandwidth GB/s
+
+
+CHIPS = {
+    # H100 SXM5: 1,979 dense int8 TOP/s; 3.35 TB/s HBM3; 132 SMs of 64
+    # INT32 lanes at 1.98 GHz, an IMAD.WIDE taking two issues
+    "h100": ChipSpec("h100", int8_tops=1979.0,
+                     imad_wide_gmacs=132 * 64 * 1.98 / 2, hbm_gbps=3350.0),
+}
+
+
+def detect_chip() -> ChipSpec:
+    """The :class:`ChipSpec` of CUDA device 0, by its name.  Raises
+    RuntimeError without a card and ValueError for a card that has no
+    entry in :data:`CHIPS`."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("detect_chip needs a CUDA device")
+    name = torch.cuda.get_device_name(0)
+    for key, spec in CHIPS.items():
+        if key in name.lower().replace(" ", ""):
+            return spec
+    raise ValueError(f"no ChipSpec for {name!r}; known: {sorted(CHIPS)}")
+
+
+def sliding_mults(e_bits: int, window: int) -> int:
+    """Montgomery multiplies of the shared-exponent sliding-window ladder
+    (rns2.sliding_window_schedule): squarings + expected window hits +
+    odd-power table build + entry/exit."""
+    return e_bits + e_bits // (window + 1) + (1 << (window - 1)) + 2
+
+
+def fixed_window_mults(e_bits: int, window: int) -> int:
+    """Montgomery products of the fixed-window ladder (B2, B4): window
+    squarings and one multiply a digit, the 2^window table, the exit."""
+    d = -(-e_bits // window)
+    return d * (window + 1) + (1 << window) + 1
+
+
+@dataclass
+class RooflineModel:
+    """The least time of one batched modexp configuration on ``chip``.
+
+    ``k``: RNS channels per base (Rns2Spec.k) for the RNS ladders; 0 for
+    the limb ladder (kernel B4) on ``mod_bits``-bit moduli.  ``rows``:
+    the batch."""
+
+    mod_bits: int             # modulus width (e.g. 4096 for mod n^2)
+    exp_bits: int             # exponent width (e.g. 2048 for r^n)
+    k: int = 0                # RNS channels per base; 0: limb ladder
+    window: int = 6
+    sliding: bool = True
+    rows: int = 1
+    chip: ChipSpec | None = None
+
+    def __post_init__(self):
+        if self.chip is None:
+            self.chip = detect_chip()
+
+    @property
+    def mults(self) -> int:
+        if self.sliding:
+            return sliding_mults(self.exp_bits, self.window)
+        return fixed_window_mults(self.exp_bits, self.window)
+
+    @property
+    def macs_per_mult(self) -> int:
+        """int8 MACs per RNS Montgomery multiply (2 base extensions)."""
+        return 8 * self.k * self.k
+
+    @property
+    def words(self) -> int:
+        """32-bit words of the modulus (the limb ladder's nw)."""
+        return -(-self.mod_bits // 32)
+
+    @property
+    def imad_per_mult(self) -> int:
+        """32x32->64 multiply-adds per limb Montgomery product (CIOS)."""
+        nw = self.words
+        return 2 * nw * nw + nw
+
+    def ops_s(self) -> float:
+        """Seconds at the operation peak: the tensor cores (RNS) or the
+        INT32 multiply pipe (limb)."""
+        if self.k:
+            return (2.0 * self.macs_per_mult * self.mults * self.rows
+                    / (self.chip.int8_tops * 1e12))
+        return (self.imad_per_mult * self.mults * self.rows
+                / (self.chip.imad_wide_gmacs * 1e9))
+
+    def bytes(self) -> int:
+        """Bytes each ladder must move: a row in and out (int32 residues
+        [2k] or 16-bit limbs held as int32) and, for RNS, the two
+        [2k, 2k] int8 base-extension matrices."""
+        if self.k:
+            return self.rows * 2 * (2 * self.k) * 4 + 2 * (2 * self.k) ** 2
+        return self.rows * 2 * (2 * self.words) * 4
+
+    def hbm_s(self) -> float:
+        return self.bytes() / (self.chip.hbm_gbps * 1e9)
+
+    def bound_s(self) -> float:
+        return max(self.ops_s(), self.hbm_s())
+
+    @property
+    def bound_by(self) -> str:
+        return "operations" if self.ops_s() >= self.hbm_s() else "bytes"
+
+    def rate(self) -> float:
+        """Rows a second at the bound."""
+        return self.rows / self.bound_s()
+
+    def report(self, measured: float | None = None) -> str:
+        """The bound's lines; ``measured``: rows a second, quoted as a
+        share of the bound."""
+        kind = (f"k={self.k} int8 tensor cores ({self.macs_per_mult} MACs "
+                f"a multiply)" if self.k else
+                f"limb nw={self.words} IMAD.WIDE ({self.imad_per_mult} "
+                f"multiply-adds a product)")
+        lines = [
+            f"roofline {self.chip.name}: mod={self.mod_bits}b "
+            f"exp={self.exp_bits}b {kind}, "
+            f"{'sliding' if self.sliding else 'fixed'}-w{self.window} "
+            f"({self.mults} multiplies), {self.rows} rows",
+            f"  operations : {self.ops_s() * 1e3:>10.4f} ms",
+            f"  HBM bytes  : {self.hbm_s() * 1e3:>10.4f} ms "
+            f"({self.bytes()} B)",
+            f"  bound      : {self.bound_s() * 1e3:>10.4f} ms by "
+            f"{self.bound_by}, {self.rate():,.0f} rows/s",
+        ]
+        if measured:
+            lines.append(f"  measured   : {measured:>12,.0f} rows/s = "
+                         f"{measured / self.rate():.1%} of the bound")
+        return "\n".join(lines)
+
+
+def encryption_roofline(pk_bits: int = 2048, window: int = 6,
+                        chip: ChipSpec | None = None, rows: int = 4096
+                        ) -> RooflineModel:
+    """Roofline of regular encryption's r^(n^s) ladder at level 1 (kernel
+    B1): exponent n (pk_bits), modulus n^2 (2*pk_bits), ``rows`` rows."""
+    from ..bigint.rns2 import Rns2Spec
+    # k depends only on the modulus width: any odd modulus of that width
+    probe = (1 << (2 * pk_bits - 1)) | 1
+    k = Rns2Spec(probe).k
+    return RooflineModel(mod_bits=2 * pk_bits, exp_bits=pk_bits, k=k,
+                         window=window, sliding=True, rows=rows, chip=chip)
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """``torch.profiler`` trace of the enclosed block (CPU activity, and
+    CUDA activity where a card is present), written to
+    ``logdir/trace.json`` in the Chrome trace format when the block
+    ends.  Yields the profiler (``key_averages()``, ``events()``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

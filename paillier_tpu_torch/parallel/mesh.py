@@ -10,9 +10,10 @@ The parallelism model is the JAX package's (``paillier_tpu.parallel.mesh``):
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the caller's process group, one device a rank: started by ``torchrun``
-(env://) or by an explicit ``init_process_group``.  This package spawns no
-processes.  Every rank holds its own tensors, so where the JAX package
-places one global array on the mesh, a rank here holds its block of it
+(env://), by an explicit ``init_process_group``, or on one host by
+:func:`.launch.run_ranks` (the driver entry points' spawner).  Every
+rank holds its own tensors, so where the JAX package places one global
+array on the mesh, a rank here holds its block of it
 (:func:`shard_batch`); the JAX module's ``batch_sharding`` and
 ``replicated`` (its shardings of such an array) have no counterpart.
 """

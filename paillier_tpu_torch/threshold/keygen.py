@@ -9,7 +9,7 @@ Primes, polynomial and shares are host work.  The l verification keys
 are one batched ladder with per-row exponent digits on the limb
 Montgomery layer: kernel B4 on a CUDA device, its plain version on the
 CPU.  B4 takes moduli of at most ``mont_kernel.MAX_LIMBS`` limbs (n^2 of
-a 4096-bit key), so the generator refuses device verification keys for
+a 6144-bit key), so the generator refuses device verification keys for
 keys whose n^2 is wider when it is built; ``device_verification_keys=False``
 takes host ``pow`` for them, as in the JAX package.
 """

@@ -2,8 +2,9 @@
 gaps: ``Encryptor.encrypt_zeros`` / ``encrypt_ones`` (bit-equal to the
 JAX package's from the same ``random.Random`` state), and the errors
 that name a size the port does not take (the RNS engine's modulus width
-at ``DeviceKey`` / ``Encryptor`` / ``Decryptor``; kernel B4's limb
-count).  Tolerance: exact (limbs compared as uint32).
+and, past it, kernel B4's limb count at ``DeviceKey`` / ``Encryptor`` /
+``Decryptor``; kernel B4's own width check).  Tolerance: exact (limbs
+compared as uint32).
 """
 
 import random
@@ -51,20 +52,35 @@ def _pk(bits):
 
 
 def test_modulus_width_error():
-    """A 4096-bit key at level 2 (n^3: 12,288 bits) is beyond the RNS
-    engine; the error names the key, the level, the modulus and the
-    limit, raised where the object is built.  Level 1 (n^2: 8192 bits)
-    is within it."""
+    """A 4096-bit key at level 2 (n^3: 12,288 bits) is past the RNS
+    engine: the Encryptor and Decryptor build on the limb route (kernel
+    B4 at 768 limbs) and the RNS engine of that level still refuses.  An
+    8192-bit key at level 2 (n^3: 1,536 limbs) is past both; the error
+    names the key, the level, the modulus and both limits, raised where
+    the object is built.  Level 1 of a 4096-bit key (n^2: 8192 bits)
+    takes the RNS engine."""
     sk = _pk(4096)
-    msg = (r"a 4096-bit key at level 2 has a 1228[6-8]-bit modulus n\^3; the "
-           r"RNS engine takes moduli of at most 8661 bits")
+    pk = sk.public()
+    dk = pk.device("cpu")
+    assert dk.limb_route(2) and not dk.limb_route(1)
+    pt.Encryptor(pk, 2, device="cpu")
+    pt.Decryptor(sk, 2, device="cpu")
+    with pytest.raises(ValueError, match=(
+            r"a 4096-bit key at level 2 has a 1228[6-8]-bit modulus n\^3; "
+            r"the RNS engine takes moduli of at most 8661 bits")):
+        dk.rns(2)
+    dk.check_level(1)
+    dk.check_level(2)
+    big = _pk(8192)
+    msg = (r"a 8192-bit key at level 2 has a 245[0-9][0-9]-bit modulus n\^3 "
+           r"\(1536 limbs\); the RNS engine takes moduli of at most 8661 "
+           r"bits and kernel B4 at most 12288 bits \(768 limbs\)")
     with pytest.raises(ValueError, match=msg):
-        pt.Encryptor(sk.public(), 2, device="cpu")
+        pt.Encryptor(big.public(), 2, device="cpu")
     with pytest.raises(ValueError, match=msg):
-        pt.Decryptor(sk, 2, device="cpu")
+        pt.Decryptor(big, 2, device="cpu")
     with pytest.raises(ValueError, match=msg):
-        sk.public().device("cpu").rns(2)
-    sk.public().device("cpu").check_level(1)
+        big.public().device("cpu").check_level(2)
 
 
 def test_modulus_width_limit_is_the_specs():
@@ -76,11 +92,11 @@ def test_modulus_width_limit_is_the_specs():
 
 def test_b4_limb_error_names_the_modulus():
     """Kernel B4's width check (run before any launch) names the modulus
-    bits: a 8208-bit modulus takes 513 limbs, one over the limit; a
-    8192-bit one (n^2 of a 4096-bit key) fits."""
-    ctx = make_mont_ctx(_pk(8208).n, device="cpu")
+    bits: a 12,304-bit modulus takes 769 limbs, one over the limit; a
+    12,288-bit one (n^3 of a 4096-bit key) fits."""
+    ctx = make_mont_ctx(_pk(12304).n, device="cpu")
     with pytest.raises(ValueError, match=r"kernel B4 takes moduli of at most "
-                       r"8192 bits \(512 limbs\), got a 8208-bit modulus in "
-                       r"513 limbs"):
+                       r"12288 bits \(768 limbs\), got a 12304-bit modulus "
+                       r"in 769 limbs"):
         mont_kernel.check_width(ctx)
-    mont_kernel.check_width(make_mont_ctx(_pk(8192).n, device="cpu"))
+    mont_kernel.check_width(make_mont_ctx(_pk(12288).n, device="cpu"))

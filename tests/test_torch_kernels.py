@@ -490,7 +490,7 @@ def _from_lanes(lanes):
 
 @pytest.mark.parametrize("nw,tpi", [
     (3, 4), (8, 4), (8, 8), (8, 16), (8, 32), (32, 4), (32, 8), (32, 16),
-    (32, 32), (64, 8), (64, 16), (64, 32)])
+    (32, 32), (64, 8), (64, 16), (64, 32), (384, 32)])
 def test_b4_lane_arithmetic(nw, tpi):
     """Kernel B4's Montgomery product with a group of ``tpi`` lanes a row,
     emulated lane by lane (word broadcasts of b_i and m_i, carry-save
@@ -1122,6 +1122,99 @@ def test_b4_wide_rows_take_eight_words_a_lane():
     assert [mk.padded_words(nw, 32) for nw in (1, 33, 97, 128)] == [
         32, 64, 128, 128]
     assert (mk.padded_words(128, 16), mk.padded_words(100, 8)) == (128, 104)
+
+
+def test_b4_rows_past_256_words_take_twelve_words_a_lane():
+    """Rows of 257 to 384 words (L = 513 to 768 limbs, moduli up to
+    12,288 bits, n^3 of a 4096-bit key) run 32 lanes of 12 words (the
+    kernel's widest case), padded to 384 words, whatever the batch; one
+    limb more is past MAX_LIMBS."""
+    assert mk.MAX_LIMBS == 768 and max(mk.WORDS_PER_LANE) == 12
+    for nw in range(257, 385):
+        for rows in (1, 64, 4096, 10 ** 6):
+            assert mk.lanes_per_row(nw, rows, 132) == 32
+        assert mk.padded_words(nw, 32) == 384
+    # one row's table at window 4: 16 entries of 384 words (24,576 B)
+    assert 16 * 384 * 4 == 24576
+    assert mk.rows_per_block(24576, 128 // 32) == 4
+    ctx = tmont.make_mont_ctx(_odd(random.Random(1), 16 * 769), device="cpu")
+    with pytest.raises(ValueError, match=r"at most 12288 bits \(768 limbs\)"):
+        mk.check_width(ctx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [12288, 11000])
+def test_kernel_b4_l768_on_cuda(cuda_device, bits):
+    """Kernel B4 at L = 768 (n^3 of a 4096-bit key; 32 lanes of 12 words)
+    and at 688 limbs (padded to 768): 33 rows against the plain ladder on
+    the card over 8 shared and 8 per-row digits, and 4 rows over a
+    256-bit exponent against Python's pow."""
+    rng = random.Random(bits)
+    m = _odd(rng, bits)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    L = ctx.n_limbs
+    assert mk.lanes_per_row(L // 2, 33, 132) == 32
+    assert mk.padded_words(L // 2, 32) == 384
+    xs = [rng.randrange(m) for _ in range(32)] + [m - 1]
+    x = torch.as_tensor(host.ints_to_limbs(xs, L).astype(np.int64),
+                        device=cuda_device)
+    per = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(32), 4, 8)
+                                    for _ in xs]), device=cuda_device)
+    for dig in (per[0], per):
+        before = mk.mont_pow_b4.launches
+        got = mk.mont_pow_b4(ctx, x, dig, 4)
+        assert mk.mont_pow_b4.launches == before + 1
+        assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig, 4))
+    e = rng.getrandbits(256) | 1 << 255
+    got = mk.mont_pow_b4(ctx, x[:4], torch.as_tensor(
+        exp_digits(e, 4, 64), device=cuda_device), 4)
+    assert host.limbs_to_ints(got.cpu().numpy()) == [pow(v, e, m)
+                                                     for v in xs[:4]]
+
+
+@pytest.mark.cuda
+def test_level2_4096_round_trip_on_cuda(cuda_device):
+    """A 4096-bit key at level 2 on the card: the limb route (kernel B4 at
+    L = 768) for Encryptor(pk, 2), regular and alternative, Decryptor(sk,
+    2) and the nested functions, with their exact B4 launches (level 1
+    stays on B1); 2 rows equal the host formula."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch import homomorphic as hom
+    sk_, pk = pt.keygen(4096, random.Random(4096), device_primes=False)
+    dk = pk.device(cuda_device)
+    assert dk.limb_route(2) and not dk.limb_route(1)
+    rng = random.Random(0x4096)
+    ms = [rng.randrange(pk.n2) for _ in range(6)] + [0, pk.n2 - 1]
+    rs = [rng.randrange(1, pk.n) for _ in ms]
+    launches = (sk.rns2_pow_sliding_b1, mx.rns2_pow_b2, mk.mont_pow_b4)
+
+    def run(fn, want):
+        before = [w.launches for w in launches]
+        out = fn()
+        assert [w.launches - b for w, b in zip(launches, before)] == want
+        return out
+
+    dec = pt.Decryptor(sk_, 2, device=cuda_device)
+    ct = run(lambda: pt.Encryptor(pk, 2, device=cuda_device).encrypt(ms, rs),
+             [0, 0, 1])
+    n3 = pk.n3
+    assert pt.decode_batch(ct.c[:2]) == [
+        pow(1 + pk.n, m, n3) * pow(r, pk.n2, n3) % n3
+        for m, r in zip(ms[:2], rs[:2])]
+    assert run(lambda: dec.decrypt(ct), [0, 0, 1]) == ms
+    alt = run(lambda: pt.Encryptor(pk, 2, "alternative", rng=rng,
+                                   device=cuda_device).encrypt(ms),
+              [0, 0, 1])
+    assert dec.decrypt(alt) == ms
+    xs = [rng.randrange(pk.n) for _ in range(4)]
+    ys = [rng.randrange(pk.n) for _ in range(4)]
+    nx = run(lambda: pt.nested_encrypt(pk, xs, rng, device=cuda_device),
+             [1, 0, 1])
+    yct = pt.Encryptor(pk, device=cuda_device).encrypt(ys)
+    na = run(lambda: hom.nested_add(pk, nx, yct), [0, 0, 1])
+    got = run(lambda: pt.nested_decrypt(sk_, na, device=cuda_device),
+              [1, 0, 1])
+    assert got == [(a + b) % pk.n for a, b in zip(xs, ys)]
 
 
 @pytest.mark.cuda

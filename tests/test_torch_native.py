@@ -73,3 +73,31 @@ def test_keygen_2048_matches_jax():
     jsk, _ = jkeygen(2048, random.Random(0x2048))
     assert tsk.n == jsk.n and tsk.h == jsk.h
     assert tsk.n.bit_length() == 2048 and tsk.p % 4 == 3
+
+
+@pytest.mark.skipif(not jnative.available(),
+                    reason="the JAX package's native runtime does not load")
+def test_powm_batch_gcd_mulmod_match_jax():
+    """The three wrappers of the JAX loader the port lacked: the same
+    values from the same inputs, and the same errors."""
+    rng = random.Random(0xC6)
+    m = rng.getrandbits(512) | 1
+    e = rng.getrandbits(512)
+    bases = [rng.getrandbits(520) for _ in range(17)] + [0, m]
+    for threads in (1, 4):
+        got = native.powm_batch(bases, e, m, threads=threads)
+        assert got == jnative.powm_batch(bases, e, m, threads=threads)
+        assert got == [pow(b, e, m) for b in bases]
+    for _ in range(50):
+        mod = rng.getrandbits(rng.randrange(8, 400)) | 1
+        a, b = rng.getrandbits(380), rng.getrandbits(250)
+        g = rng.getrandbits(64)
+        assert native.gcd(a * g, mod * g) == jnative.gcd(a * g, mod * g)
+        assert native.mulmod(a, b, mod) == jnative.mulmod(a, b, mod) \
+            == a * b % mod
+    assert native.gcd(0, 0) == jnative.gcd(0, 0) == 0
+    for fn in (native, jnative):
+        with pytest.raises(ValueError):
+            fn.mulmod(3, 4, 0)
+        with pytest.raises(ValueError):
+            fn.powm_batch([3], 5, 0)

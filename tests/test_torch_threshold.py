@@ -184,12 +184,12 @@ def test_generator_validation():
 
 def test_b4_width_error_at_4096_bits():
     """Device verification keys of a 4096-bit key need n^2 at 512 limbs,
-    kernel B4's limit: the generator builds, and its ladder at L = 512
-    (the plain version on the CPU) equals pow on a 4096-bit n's n^2 for a
-    few rows with short exponents.  An 8192-bit key (n^2 at 1,024 limbs)
-    raises a named error when the generator is built."""
+    within kernel B4's 768: the generator builds, and its ladder at
+    L = 512 (the plain version on the CPU) equals pow on a 4096-bit n's
+    n^2 for a few rows with short exponents.  An 8192-bit key (n^2 at
+    1,024 limbs) raises a named error when the generator is built."""
     with pytest.raises(ValueError, match=r"8192-bit threshold key.*B4.*"
-                       r"8192 bits \(512 limbs\)"):
+                       r"12288 bits \(768 limbs\)"):
         tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU)
     tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU,
                               device_verification_keys=False)

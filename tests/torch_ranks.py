@@ -5,99 +5,26 @@ that imports this module, never a test module.
 
     run_ranks(body, world, *args, init_dir=tmp_path, timeout=120)
 
+is the package's ``paillier_tpu_torch.parallel.launch.run_ranks``: it
 starts ``world`` processes, each joining one process group (gloo, or NCCL
 with one card a rank) through a file in ``init_dir``, runs
 ``body(rank, world, *args)`` in each and returns their results in rank
-order.  Any rank that raises or dies fails the call, and ranks still
-running at ``timeout`` seconds are killed and fail it too.  Results
-travel as plain Python data (ints, lists, numpy arrays).
+order.  Results travel as plain Python data (ints, lists, numpy arrays).
 """
 
 from __future__ import annotations
 
-import multiprocessing as mp
-import os
-import queue
 import random
 import sys
-import time
-import traceback
-from datetime import timedelta
 
 import torch
-import torch.distributed as dist
 
-
-def run_ranks(body, world: int, *args, init_dir, timeout: float = 120.0,
-              backend: str = "gloo") -> list:
-    ctx = mp.get_context("spawn")
-    init = os.path.join(str(init_dir), f"rendezvous-{os.getpid()}-"
-                        f"{time.monotonic_ns()}")
-    results_q = ctx.Queue()
-    procs = [ctx.Process(target=_rank, daemon=True,
-                         args=(body, rank, world, init, backend, args,
-                               results_q))
-             for rank in range(world)]
-    for p in procs:
-        p.start()
-    results: dict = {}
-    deadline = time.monotonic() + timeout
-    try:
-        while len(results) < world:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(f"{world - len(results)} of {world} ranks "
-                                   f"still running after {timeout} s")
-            try:
-                rank, ok, value = results_q.get(timeout=min(left, 1.0))
-            except queue.Empty:
-                dead = [(i, p.exitcode) for i, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    raise RuntimeError(f"rank {dead[0][0]} exited with code "
-                                       f"{dead[0][1]}")
-                continue
-            if not ok:
-                raise RuntimeError(f"rank {rank} failed:\n{value}")
-            results[rank] = value
-    finally:
-        for p in procs:
-            p.join(timeout=10 if len(results) == world else 0)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [results[r] for r in range(world)]
-
-
-def _rank(body, rank, world, init, backend, args, results_q):
-    try:
-        torch.set_num_threads(1)
-        if backend == "nccl":
-            torch.cuda.set_device(rank)
-        dist.init_process_group(backend, init_method="file://" + init,
-                                rank=rank, world_size=world,
-                                timeout=timedelta(seconds=300))
-        out = body(rank, world, *args)
-        dist.barrier()
-        results_q.put((rank, True, out))
-    except BaseException:
-        results_q.put((rank, False, traceback.format_exc()))
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+from paillier_tpu_torch.parallel.launch import rank_device, run_ranks
 
 
 # ---------------------------------------------------------------------------
 # Rank bodies
 # ---------------------------------------------------------------------------
-
-def _device(device: str) -> torch.device:
-    """The rank's device: the CPU, or its current card."""
-    if device == "cpu":
-        return torch.device("cpu")
-    return torch.device("cuda", torch.cuda.current_device())
-
 
 def _no_jax() -> None:
     assert "jax" not in sys.modules, "a rank imported JAX"
@@ -168,7 +95,7 @@ def aggregate_body(rank, world, pk, cts, device):
     from paillier_tpu_torch.parallel import (make_mesh, shard_batch,
                                              sharded_aggregate)
     _no_jax()
-    dev = _device(device)
+    dev = rank_device(device)
     mesh = make_mesh(device_type=dev.type)
     before = _launches()
     out, on_dev = {}, []
@@ -216,7 +143,7 @@ def combine_body(rank, world, keys, ct, servers, device):
     returns the plaintexts and the launches."""
     from paillier_tpu_torch.parallel import make_mesh
     _no_jax()
-    dev = _device(device)
+    dev = rank_device(device)
     mesh = make_mesh(world, servers=servers, device_type=dev.type)
     before = _launches()
     got = combine_steps(keys, torch.as_tensor(ct, device=dev), mesh)
@@ -237,7 +164,7 @@ def ddleq_body(rank, world, sk, c1, c2, a_l, b_l, secpar, seed, chunks,
     from paillier_tpu_torch.parallel import make_mesh
     from paillier_tpu_torch.zk import ddleq as zd
     _no_jax()
-    dev = _device(device)
+    dev = rank_device(device)
     mesh = make_mesh(device_type=dev.type)
     pk = sk.public()
     ct1 = Ciphertext(c=torch.as_tensor(c1, device=dev), level=LEVEL_TWO)
