@@ -8,8 +8,9 @@ non-zero):
   1. device  -- a CUDA device is required; prints nvidia-smi's name and
                 power limit.
   2. build   -- builds kernels B1 (csrc/rns2_sliding.cu), B2
-                (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
-                (csrc/limb_modexp.cu) and the probes P1-P5
+                (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu), B4
+                (csrc/limb_modexp.cu) and B4w (csrc/limb_modexp_wide.cu)
+                and the probes P1-P5
                 (csrc/probe_*.cu), one nvcc each, all at once, into
                 build/paillier_tpu_torch/, and prints the build time and
                 ptxas' register and spill report of every instantiation;
@@ -26,7 +27,7 @@ non-zero):
                 (c^(p-1) mod p^2); 1024 rows at k = 512 (r^(n^2) mod n^3)
                 and 64 rows at k = 704 (n^2 of phase 13's 4096-bit key,
                 a 2048-bit exponent, fin), these two against plain on all
-                rows on the top 1,024 bits of their exponents, timed at
+                rows on the top 512 bits of their exponents, timed at
                 full depth and against pow; each k also the other way
                 round (with fin where the main shape has none, and
                 without where it has it) on 33 rows with a 256-bit
@@ -37,7 +38,7 @@ non-zero):
                 B2: shared and per-row digits at k = 64; per-row 2048-bit
                 exponents on 4096 rows at k = 320 (const_mult); 1024 rows
                 at k = 512 with the 1024 digits of level-1 ciphertexts
-                (nested_add; the last 256 digits against plain, all 1024
+                (nested_add; the last 128 digits against plain, all 1024
                 timed and against pow); each main shape prints its tile
                 rows and us per multiply.
                 B3: k = 64 with and without fin; the main path's shapes,
@@ -74,13 +75,13 @@ non-zero):
                 DDLEQ's shapes on bench.py's chunk (128 proofs x secpar
                 40 = 5,120 rows): B1 and B2 at k = 256 (the prover's
                 p^3 half: y^(n^2 mod p^2(p-1)), 1,024 per-row digits)
-                against plain on all rows (B1 on the top 1,024 bits of
-                its exponent, B2 on its last 256 digits; both timed at
+                against plain on all rows (B1 on the top 512 bits of
+                its exponent, B2 on its last 128 digits; both timed at
                 full depth and against pow); the verifier's B1 (f^(n^2))
                 and B2 (1,024 digits) at k = 512 timed on all rows, 4
                 against pow (that shape, 1024 rows at k = 512, runs
-                against plain above: B1 on the top 1,024 bits of n^2,
-                B2 on the last 256 digits).
+                against plain above: B1 on the top 512 bits of n^2,
+                B2 on the last 128 digits).
                 Kernel and plain times are CUDA events.
   4. main    -- the first slice's path at full width: keygen(2048),
                 Encryptor(pk, device="cuda") on 4096 plaintexts,
@@ -185,15 +186,33 @@ non-zero):
                 intervals over the window's span), the 5 kernels with
                 most device time, and the count of B1-B4 kernel events,
                 which must equal the launch counters (B1 12, B2 9, B4 1).
-Phases 4-14 each set the launch counters to 0 just before their
+ 15. wide    -- kernel B4w (moduli past B4's 768 limbs): against its
+                plain version over 32 digits on 64 rows at L = 1,024 and
+                1,536, 16 rows of per-row moduli at 1,100 limbs and 2
+                rows at 5,824 limbs (the table in global memory), 2 rows
+                of each against pow; against the register kernel B4 at
+                L = 768 on phase 13's 64 rows (both timed); an 8192-bit
+                key (keygen(8192, random.Random(8192))) on 16 rows:
+                level-1 Encryptor, Decryptor(crt=True) (B1 at k = 704)
+                and crt=False, level-2 Encryptor and Decryptor (B4w),
+                round trips and 8 rows of each level equal to the host
+                formula; threshold's limb branches (partial_decrypt_all,
+                combine) and the limb CRT decryption on 512 rows of
+                phases 10 and 4, with the RNS engine's width lowered to
+                2,000 bits, equal to the RNS branches; the verification
+                keys mod n^2 of a random 8192-bit n (5 rows of 16,391-bit
+                exponents, B4w) equal to pow.
+Phases 4-15 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
-whose B1, B2, B3 and B4 launches differ from the exact count its entry
-points make fails (the prime search's B4 count is the number of Fermat
+whose B1, B2, B3, B4 and B4w launches differ from the exact count its
+entry points make fails (the prime search's B4 count is the number of Fermat
 batches it reports; phase 10: keys B4 1, partial decryption B1 3,
 combine B2 1, the proofs B1 3 and B2 35; phase 11: the serial chunk
 B1 9, B2 9, B4 1, the checks B1 15, B2 14, B4 2, the pipeline B1 18,
 B2 18, B4 2; phase 12: each rank's, above, and none in this process;
-phase 13: B1 2, B4 5; phase 14: B1 12, B2 9, B4 1),
+phase 13: B1 2, B4 5; phase 14: B1 12, B2 9, B4 1; phase 15: the
+8192-bit key B1 2, B4w 4, the forced limb branches B4 6, the
+verification keys B4w 1),
 and phase 9 fails unless every probe kernel launched.
 Then lines of the threshold and DDLEQ shapes' bounds, one JSON line
 describing the kernels, the card's name and power limit, and as the
@@ -223,7 +242,7 @@ KEY_BITS = 2048
 SEED = 2048
 WARM_ROWS = 64         # rows of the untimed first encrypt / decrypt
 HOST_ROWS = 8          # rows checked against the host formula
-PLAIN_DIGITS = 256     # depth of the plain comparisons of the widest
+PLAIN_DIGITS = 128     # depth of the plain comparisons of the widest
 # ladders (base-16 digits; B1 at DDLEQ's k = 256: 4 bits a digit)
 THR_E_BITS = 4100      # partial decryption's 2*delta*s_i at 2048 bits
 DD_CHUNK = 128         # bench.py's ddleq configuration: proofs a chunk,
@@ -234,6 +253,13 @@ DD_ROWS = DD_CHUNK * DD_SECPAR
 DRYRUN_LAUNCHES = [20, 34, 0, 2]
 L4_BITS = 4096         # the limb route's key: level 2 (n^3) past the RNS
 L4_ROWS = 64           # engine, on kernel B4 at L = 768; rows a call
+W8_BITS = 8192         # phase 15's key: both levels past the RNS engine
+W8_ROWS = 16           # rows of its calls
+W_THR_ROWS = 512       # rows of phase 15's forced limb branches
+# B4w against plain (phase 15): (limbs, rows, per-row moduli); the second
+# is the kernels line's shape, n^3 of an 8192-bit key
+WIDE_SHAPES = ((1024, 64, False), (1536, 64, False), (1100, 16, True),
+               (5824, 2, False))
 THR_SEED = 0x7357      # bench.py's threshold configuration: its rng seed
 # and its fixed 1024-bit safe primes p = 2p' + 1 (bench.py:49-50)
 SAFE_P1024 = int(
@@ -276,11 +302,13 @@ def ptxas_report(log: str) -> list[str]:
             t = re.search(r"ILb([01])ELi(\d+)ELi(\d+)E", m.group(1))
             r = re.search(r"ILi(\d+)ELb([01])ELi(\d+)E", m.group(1))
             w = re.search(r"limb_modexp_kernelILi(\d+)EE", m.group(1))
+            wm = re.search(r"limb_modexp_wide_kernelILi(\d+)EE", m.group(1))
             p = re.search(r"(?:probes|vpuops)\d+(\w+?_kernel)I((?:Li\d+E)+)E",
                           m.group(1))
             name = (f"<wide={t.group(1)},{t.group(2)},{t.group(3)}>" if t
                     else f"<rows={r.group(1)},wide={r.group(2)},{r.group(3)}>"
                     if r else f"<words={w.group(1)}>" if w
+                    else f"<mode={wm.group(1)}>" if wm
                     else f" {p.group(1)}<"
                     + ",".join(re.findall(r"\d+", p.group(2))) + ">" if p
                     else m.group(1))
@@ -442,7 +470,8 @@ def main() -> None:
     b3_plain = fb_mod.rns2_pow_fixed_base_plain
     b4 = mk_mod.mont_pow_b4
     b4_plain = mk_mod.mont_pow_digits_plain
-    wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4}
+    b4w = mk_mod.mont_pow_b4w
+    wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4, "B4w": b4w}
     mods = {"B1": sk_mod, "B2": mx_mod, "B3": fb_mod, "B4": mk_mod}
     probe_mods = {"P1": pr_dotvar, "P2": pr_dotchain, "P3": pr_overlap,
                   "P4": pr_pad, "P5": pr_vpuops}
@@ -461,16 +490,18 @@ def main() -> None:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    loaders = [mod.load for mod in mods.values()] + [
+    loaders = [mod.load for mod in mods.values()] + [mk_mod.load_wide] + [
         mod.KERNEL.load for mod in probe_mods.values()]
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(load) for load in loaders]:
             fut.result()
-    phase("build", f"kernels {', '.join(mods)} and probes "
+    phase("build", f"kernels {', '.join(mods)}, B4w and probes "
           f"{', '.join(probe_mods)} built in {time.perf_counter() - t0:.2f} s")
     for name, mod in mods.items():
         for ln in ptxas_report(mod.build_log):
             phase("build", f"{name}{ln}")
+    for ln in ptxas_report(mk_mod.build_log_wide):
+        phase("build", f"B4w{ln}")
     for name, mod in probe_mods.items():
         for ln in ptxas_report(mod.KERNEL.build_log):
             phase("build", f"{name}{ln}")
@@ -497,7 +528,7 @@ def main() -> None:
           + ", ".join(f"{k} {v}" for k, v in imma.items() if v) + ")")
 
     # -- 3. kernel vs plain ------------------------------------------------
-    stats = {kname: {"err": 0, "n": 0, "times": []} for kname in mods}
+    stats = {kname: {"err": 0, "n": 0, "times": []} for kname in wrappers}
 
     def compare(kname, run_kernel, run_plain, label, warm=False):
         """Kernel and plain version on the same inputs: bit-identical, or
@@ -1184,10 +1215,11 @@ def main() -> None:
     def counts():
         return {kname: w.launches for kname, w in wrappers.items()}
 
-    def timed(name, fn, b1_want=0, b2_want=0, b3_want=0, b4_want=0):
+    def timed(name, fn, b1_want=0, b2_want=0, b3_want=0, b4_want=0,
+              b4w_want=0):
         """fn() between two synchronisations; its seconds go to op_s.
-        Fails unless fn launched B1, B2, B3 and B4 exactly as often as
-        its entry point does."""
+        Fails unless fn launched B1, B2, B3, B4 and B4w exactly as often
+        as its entry point does."""
         before = counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1195,10 +1227,10 @@ def main() -> None:
         torch.cuda.synchronize()
         op_s[name] = time.perf_counter() - t
         got = tuple(v - before[k] for k, v in counts().items())
-        want = (b1_want, b2_want, b3_want, b4_want)
+        want = (b1_want, b2_want, b3_want, b4_want, b4w_want)
         if got != want:
-            fail(f"{name} launched (B1, B2, B3, B4) {got}, expected {want}: "
-                 f"an operation bypassed its kernel")
+            fail(f"{name} launched (B1, B2, B3, B4, B4w) {got}, expected "
+                 f"{want}: an operation bypassed its kernel")
         return res
 
     def op_line():
@@ -1992,7 +2024,7 @@ def main() -> None:
         launches[kname] += tr_counts[kname]
     if tr_out != ms or tr_ok != [True] * DD_CHUNK:
         fail("a traced window's results are wrong")
-    if tr_counts != {"B1": 12, "B2": 9, "B3": 0, "B4": 1}:
+    if tr_counts != {"B1": 12, "B2": 9, "B3": 0, "B4": 1, "B4w": 0}:
         fail(f"the traced windows launched {tr_counts}, expected B1 12, "
              f"B2 9, B4 1")
     t_parse = time.perf_counter()
@@ -2032,16 +2064,252 @@ def main() -> None:
                      for kname, sym in (("B1", "rns2_sliding_kernel"),
                                         ("B2", "rns2_modexp_kernel"),
                                         ("B3", "rns2_fixed_base_kernel"),
-                                        ("B4", "limb_modexp_kernel"))}
+                                        ("B4", "limb_modexp_kernel"),
+                                        ("B4w", "limb_modexp_wide_kernel"))}
         if ev_counts != tr_counts:
             fail(f"the trace holds kernel events {ev_counts}, the launch "
                  f"counters say {tr_counts}")
         mb = os.path.getsize(os.path.join(trace_dir, "trace.json")) / 1e6
-        phase("trace", f"kernel events B1-B4 {ev_counts} equal the launch "
+        phase("trace", f"kernel events B1-B4w {ev_counts} equal the launch "
               f"counters; {len(kern)} kernels, {len(events)} events, "
               f"{mb:.1f} MB, parsed in {time.perf_counter() - t_parse:.1f} s "
               f"({time.perf_counter() - t0:.1f} s in all)")
     del events, kern
+
+    # -- 15. wide: kernel B4w and the key widths past 768 limbs ------------
+    # B4w against its plain version over 32 digits (64 rows at L = 1,024
+    # and 1,536, per-row moduli at 1,100 limbs, 2 rows at 5,824 limbs with
+    # the table in global memory) and against the register kernel B4 at
+    # L = 768; an 8192-bit key at levels 1 and 2 on 16 rows; threshold's
+    # limb branches and the limb CRT on the 2048-bit keys of phases 10 and
+    # 4, the route forced by lowering the RNS engine's width; the
+    # verification keys of an 8192-bit modulus
+    t15 = time.perf_counter()
+    from paillier_tpu_torch import native
+    from paillier_tpu_torch.bigint import rns2 as rns2_mod
+    have_gmp = native.available()
+    w_pool = (ThreadPoolExecutor(2) if have_gmp else ProcessPoolExecutor(
+        6, mp_context=mp.get_context("spawn")))
+
+    def host_pows(bases, exps, mod):
+        """[b^e mod mod] for the rows (exps: one int shared, or a list),
+        started in the background: by GMP in a thread (it releases the
+        GIL) where the native helper loads, else in worker processes;
+        returns a function that waits for the list."""
+        exps = [exps] * len(bases) if isinstance(exps, int) else exps
+        if have_gmp:
+            return w_pool.submit(lambda: [native.powm(b, e, mod) for b, e
+                                          in zip(bases, exps)]).result
+        it = w_pool.map(pow, bases, exps, [mod] * len(bases))
+        return lambda: list(it)
+
+    # the 8192-bit key's prime search runs in GMP, which releases the GIL,
+    # in a thread while the card runs the kernel comparisons below (the
+    # Python-bound set-up does not: it slowed the plain ladders tenfold)
+    def timed_keygen():
+        t = time.perf_counter()
+        keys = keygen(W8_BITS, random.Random(W8_BITS), device=dev)
+        return keys, time.perf_counter() - t
+
+    kg_pool = ThreadPoolExecutor(1)
+    kg8 = kg_pool.submit(timed_keygen)
+    wrng = random.Random(0x15)
+    # the verification keys' modulus: n^2 of a random 8192-bit n
+    vk_n = wrng.getrandbits(W8_BITS) | 1 << (W8_BITS - 1) | 1
+    vk_n2 = vk_n * vk_n
+    vk8_v = wrng.randrange(2, vk_n2)
+    vk8_shares = [wrng.getrandbits(2 * W8_BITS) for _ in range(5)]
+    vk8_pows = host_pows([vk8_v] * 5, [120 * s_ for s_ in vk8_shares],
+                         vk_n2)
+    wide_shapes = []
+    for Lw_, rows_w, per_mod in WIDE_SHAPES:
+        bits_w = 16 * Lw_
+        mods_w = [wrng.getrandbits(bits_w) | 1 << (bits_w - 1) | 1
+                  for _ in range(rows_w if per_mod else 1)]
+        ctx_w_ = (stack_mont_ctx(mods_w, Lw_, device=dev) if per_mod
+                  else make_mont_ctx(mods_w[0], device=dev))
+        row_mods = [mods_w[i % len(mods_w)] for i in range(rows_w)]
+        xs_w = [wrng.randrange(m_) for m_ in row_mods]
+        x_w = limbs(xs_w, Lw_)
+        e_w = wrng.getrandbits(128) | 1 << 127
+        d_w = torch.as_tensor(exp_digits(e_w, 4, 32), device=dev)
+        nw_ = mk_mod.wide_words(Lw_)
+        mode_ = mk_mod.wide_mode(nw_, 4)
+        rb_ = mk_mod.wide_rows_per_block(rows_w, mk_mod.wide_row_bytes(
+            nw_, 4, mode_), torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        label = (f"L={Lw_} rows={rows_w} "
+                 + ("per-row moduli" if per_mod else "shared")
+                 + f" 32 digits, mode {mode_}")
+        # the two shapes of 8192-bit keys timed warm, the others on their
+        # first call (their host work, such as the padded context, in it)
+        warm = not per_mod and mode_ == 0
+        got, ms_w, plain_w = compare(
+            "B4w", lambda: b4(ctx_w_, x_w, d_w, 4),
+            lambda: b4_plain(ctx_w_, x_w, d_w, 4), label, warm=warm)
+        if not warm:
+            label += " (first call)"
+            stats["B4w"]["times"].append({"shape": label, "ms": ms_w,
+                                          "plain_ms": plain_w})
+        check_limbs(got, xs_w, [e_w] * rows_w, row_mods, 2, f"B4w {label}")
+        wide_shapes.append(dict(L=Lw_, rows=rows_w, ms=ms_w,
+                                plain_ms=plain_w, label=label))
+        phase("wide", f"B4w L={Lw_} ({nw_} words, mode {mode_}, {rb_} rows "
+              f"a block), {rows_w} rows"
+              + (", per-row moduli" if per_mod else "")
+              + f", 32 digits: bit-identical to plain, 2 rows equal pow; "
+              f"kernel {ms_w:.3f} ms ({ms_w * 1e3 / 177:.2f} us a product), "
+              f"plain {plain_w:.3f} ms")
+    del got, x_w
+
+    def ev_ms(fn):
+        """fn() once to warm, then once between two CUDA events."""
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    # the crossover point: B4w and the register B4 at L = 768 (n^3 of
+    # phase 13's 4096-bit key), 64 rows, 32 digits
+    ctx768 = sk4.device(dev).ctx_for_level(2)
+    x768 = limbs(x4s, ctx768.n_limbs)
+    d768 = torch.as_tensor(exp_digits(wrng.getrandbits(128) | 1 << 127, 4,
+                                      32), device=dev)
+    reg768, ms_reg768 = ev_ms(lambda: b4(ctx768, x768, d768, 4))
+    wid768, ms_wid768 = ev_ms(lambda: b4w(ctx768, x768, d768, 4))
+    if not torch.equal(reg768, wid768):
+        fail("B4w != the register kernel B4 at L = 768")
+    stats["B4w"]["times"].append({
+        "shape": f"L=768 rows={L4_ROWS} shared 32 digits (register B4: "
+                 f"{ms_reg768:.3f} ms)", "ms": ms_wid768, "plain_ms": None})
+    phase("wide", f"L=768, {L4_ROWS} rows, 32 digits: B4w bit-identical to "
+          f"the register kernel B4; B4w {ms_wid768:.3f} ms, B4 "
+          f"{ms_reg768:.3f} ms ({card})")
+    del reg768, wid768, x768
+
+    # an 8192-bit key: both levels past the RNS engine (n^2: 1,024 limbs,
+    # n^3: 1,536, B4w), its CRT halves p^2 / q^2 on B1 at k = 704
+    (sk8, pk8), t_kg8 = kg8.result()
+    kg_pool.shutdown()
+    dk8 = pk8.device(dev)
+    if not (dk8.limb_route(1) and dk8.limb_route(2)):
+        fail(f"a {W8_BITS}-bit key must take the limb route at levels 1 "
+             f"and 2")
+    r8 = random.Random(8193)
+    m8 = {lv: [r8.randrange(pk8.n ** lv) for _ in range(W8_ROWS)]
+          for lv in (1, 2)}
+    rr8 = {lv: random_units(pk8.n, W8_ROWS, r8) for lv in (1, 2)}
+    rn8 = {lv: host_pows(rr8[lv][:HOST_ROWS], pk8.n ** lv, pk8.n ** (lv + 1))
+           for lv in (1, 2)}
+    t0 = time.perf_counter()
+    enc8 = {lv: Encryptor(pk8, lv, device=dev, rng=random.Random(lv))
+            for lv in (1, 2)}
+    dec8 = {lv: Decryptor(sk8, lv, device=dev) for lv in (1, 2)}
+    crt8 = Decryptor(sk8, 1, crt=True, device=dev)
+    # the Toeplitz plans that the first encrypt / decrypt calls would
+    # build (G^m, the L-function divisions, the level-2 recovery), so that
+    # the timed calls below are the card's ladders and their glue
+    L8, n8 = dk8.L, pk8.n
+    for lv in (1, 2):
+        dk8.const_mul_plan(n8, lv * L8, (lv + 1) * L8)
+        dk8.div_n_plan(lv * L8)
+    dk8.const_mul_plan(pk8.n2, L8, 3 * L8)
+    dk8.fold_plan(n8, 2 * L8)
+    dk8.fold_plan(pk8.n2, 3 * L8)
+    dk8.inv2_n_plan()
+    dk8.inv2fac_n2_plan()
+    dk8.barrett_plan(n8)
+    dk8.barrett_plan(pk8.n2)
+    t_set8 = time.perf_counter() - t0
+
+    def w8_ops():
+        # levels 1 and 2: one B4w ladder for each encrypt and plain
+        # decrypt; CRT decryption two B1 ladders at k = 704
+        c1 = timed("encrypt L1", lambda: enc8[1].encrypt(m8[1], rr8[1]),
+                   b4w_want=1)
+        b1c = timed("CRT decrypt L1", lambda: crt8.decrypt(c1), 2)
+        b1p = timed("decrypt L1", lambda: dec8[1].decrypt(c1), b4w_want=1)
+        c2 = timed("encrypt L2", lambda: enc8[2].encrypt(m8[2], rr8[2]),
+                   b4w_want=1)
+        b2p = timed("decrypt L2", lambda: dec8[2].decrypt(c2), b4w_want=1)
+        return (c1, c2), (b1c, b1p, b2p)
+
+    ((c81, c82), (b81c, b81p, b82p)), t_w8 = run_path(
+        "wide", w8_ops, {"B1": 2, "B4w": 4})
+    w8_line = op_line()
+    if not b81c == b81p == m8[1] or b82p != m8[2]:
+        fail(f"the {W8_BITS}-bit key did not round-trip")
+    for lv, c8 in ((1, c81), (2, c82)):
+        mod8 = n8 ** (lv + 1)
+        gm8 = [(1 + m_ * n8 + (lv - 1) * (m_ * (m_ - 1) // 2) * n8 * n8)
+               % mod8 for m_ in m8[lv][:HOST_ROWS]]
+        if decode_batch(c8.c[:HOST_ROWS]) != [
+                g * r_ % mod8 for g, r_ in zip(gm8, rn8[lv]())]:
+            fail(f"{W8_BITS}-bit level-{lv} ciphertexts != (1+n)^m "
+                 f"r^(n^{lv}) mod n^{lv + 1}")
+    phase("wide", f"{W8_BITS}-bit key: keygen {t_kg8:.2f} s (in a thread "
+          f"beside the kernel checks above; GMP "
+          f"{'loaded' if have_gmp else 'missing'}), Encryptor / Decryptor "
+          f"at levels 1 and 2, Decryptor(crt=True) and their host plans "
+          f"built in {t_set8:.2f} s; {W8_ROWS} rows ({card}), seconds: "
+          f"{w8_line}; all round-trip, {HOST_ROWS} of each level equal the "
+          f"host formula")
+
+    # threshold's limb branches and the limb CRT: the RNS engine's width
+    # lowered below p^2 of the 2048-bit keys (so n^2 is past it too)
+    sub = Ciphertext(c=tct.c[:W_THR_ROWS])
+    rns_sh = [thr_dec.PartialDecryptionBatch(id=s_.id, c=s_.c[:W_THR_ROWS])
+              for s_ in shares]
+    rns_crt = dec.decrypt_array(Ciphertext(c=ct.c[:W_THR_ROWS]))
+    saved_bits = rns2_mod.MAX_MODULUS_BITS
+    rns2_mod.MAX_MODULUS_BITS = KEY_BITS - 48
+    try:
+        if not dk_t.limb_route(1):
+            fail("the lowered width left n^2 on the RNS engine")
+        dec_l = Decryptor(skey, crt=True, device=dev)
+
+        def limb_ops():
+            # one B4 ladder a server (L = 256); combine: one B4 ladder
+            # over the stacked rows, limb trees; the limb CRT: two B4
+            # ladders (p^2, q^2 at L = 128)
+            sh = timed("partial_decrypt_all", lambda: partial_decrypt_all(
+                tkeys[:3], sub), b4_want=3)
+            out_ = timed("combine", lambda: combine(tpk, sh), b4_want=1)
+            crt_ = timed("limb CRT decrypt", lambda: dec_l.decrypt_array(
+                Ciphertext(c=ct.c[:W_THR_ROWS])), b4_want=2)
+            return sh, out_, crt_
+
+        (lsh, lout, lcrt), _ = run_path("wide", limb_ops, {"B4": 6})
+    finally:
+        rns2_mod.MAX_MODULUS_BITS = saved_bits
+    limb_line = op_line()
+    if any(not torch.equal(a.c, b.c) for a, b in zip(lsh, rns_sh)):
+        fail("threshold's limb partial_decrypt_all != its RNS branch")
+    if lout != tms[:W_THR_ROWS]:
+        fail("threshold's limb combine != the RNS branch's plaintexts")
+    if not torch.equal(lcrt, rns_crt):
+        fail("crt_decrypt_kernel != crt_decrypt_kernel_mm")
+    phase("wide", f"{W_THR_ROWS} rows with the RNS engine's width lowered "
+          f"to {KEY_BITS - 48} bits: threshold's limb partial_decrypt_all "
+          f"and combine and the limb CRT equal the RNS branches; seconds: "
+          f"{limb_line}")
+
+    # the verification keys of an 8192-bit (5, 3) key's shape: 5 rows of
+    # one base, per-row 16,391-bit exponents, mod n^2 at 1,024 limbs
+    vk8, _ = run_path("wide", lambda: ThresholdKeyGenerator(
+        W8_BITS, 5, 3, device=dev)._verification_keys(
+            vk8_v, vk8_shares, 120, vk_n2), {"B4w": 1})
+    if vk8 != vk8_pows():
+        fail(f"{W8_BITS}-bit verification keys (B4w) != pow")
+    w_pool.shutdown()
+    phase("wide", f"_verification_keys mod n^2 of a {W8_BITS}-bit n (L = "
+          f"{W8_BITS // 8}), 5 rows of "
+          f"{max(120 * s_ for s_ in vk8_shares).bit_length()}-bit exponents: "
+          f"equal pow; phase "
+          f"{time.perf_counter() - t15:.1f} s in all")
 
     phase("done", f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2129,6 +2397,20 @@ def main() -> None:
                       f"({100 * b[0] / ms:.2f}%)"
                       for k, (ms, b) in dd_shapes.items()))
 
+    # B4w's shapes (phase 15): 177 products a row (the table's 16, the
+    # 32 digits' 160, the exit), 2 nw^2 + nw multiply-adds each at the
+    # modulus' own nw = L / 2 (padding is not work)
+    def b4w_bound(sh):
+        nw_ = -(-sh["L"] // 2)
+        return bound(177 * sh["rows"] * (2 * nw_ * nw_ + nw_) / MAC32,
+                     sh["rows"] * sh["L"] * 8 * 2 + 32 * 4 + 3 * sh["L"] * 8)
+
+    phase("bounds", "B4w shapes (ms, share of bound): " + ", ".join(
+        f"{sh['label']} {sh['ms']:.3f} against {b4w_bound(sh)[0]:.4f} by "
+        f"{b4w_bound(sh)[1]} ({100 * b4w_bound(sh)[0] / sh['ms']:.2f}%)"
+        for sh in wide_shapes))
+    b4w_main = wide_shapes[1]
+
     def entry(kname, name, source, replaces, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[kname],
@@ -2163,6 +2445,10 @@ def main() -> None:
         entry("B4", "limb_modexp", "paillier_tpu_torch/csrc/limb_modexp.cu",
               "paillier_tpu/bigint/pallas_kernels.py:155", b4_ms, b4_plain_ms,
               b4_bound),
+        entry("B4w", "limb_modexp_wide",
+              "paillier_tpu_torch/csrc/limb_modexp_wide.cu",
+              "paillier_tpu/bigint/pallas_kernels.py:155", b4w_main["ms"],
+              b4w_main["plain_ms"], b4w_bound(b4w_main)),
         probe_entry("P1", "probe_dotvar", csrc + "probe_dotvar.cu",
                     pr_dotvar.SCRIPT),
         probe_entry("P2", "probe_dotchain", csrc + "probe_dotchain.cu",

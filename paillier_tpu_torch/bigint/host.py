@@ -47,13 +47,8 @@ def int_to_limbs(x: int, n_limbs: int) -> np.ndarray:
         raise ValueError("negative integers have no limb representation")
     if x >> (LIMB_BITS * n_limbs):
         raise ValueError(f"{x.bit_length()}-bit value does not fit in {n_limbs} limbs")
-    out = np.zeros(n_limbs, dtype=np.uint32)
-    i = 0
-    while x:
-        out[i] = x & LIMB_MASK
-        x >>= LIMB_BITS
-        i += 1
-    return out
+    return np.frombuffer(x.to_bytes(2 * n_limbs, "little"),
+                         dtype="<u2").astype(np.uint32)
 
 
 def limbs_to_int(limbs: Sequence[int] | np.ndarray) -> int:

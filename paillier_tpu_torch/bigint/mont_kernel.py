@@ -1,19 +1,25 @@
 """Kernel B4: the limb-domain Montgomery ladder (shared or per-row moduli
-and exponents) on the GPU.
+and exponents) on the GPU, and B4w, its variant for moduli past 768 limbs.
 
 Replaces ``paillier_tpu/bigint/pallas_kernels.py:_modexp_kernel``
-(wrapper ``mont_pow_pallas``).  The kernel is hand-written CUDA C++ in
-``paillier_tpu_torch/csrc/limb_modexp.cu`` (its header note gives the
-layout, a group of lanes per row, and what bounds it); :mod:`cuda_build`
-builds it with ``nvcc`` for ``sm_90a`` at first use and binds its plain C
-entry point with ``ctypes``; it launches on PyTorch's current stream.
-The launch shape (lanes per row, rows per block) is chosen here, by
-:func:`lanes_per_row` and :func:`rows_per_block`.
+(wrapper ``mont_pow_pallas``).  Both kernels are hand-written CUDA C++:
+B4 in ``paillier_tpu_torch/csrc/limb_modexp.cu`` (a group of lanes per
+row, the operands in registers), B4w in
+``paillier_tpu_torch/csrc/limb_modexp_wide.cu`` (a warp per row, the
+operands in shared memory; their header notes give the layouts and what
+bounds them).  :mod:`cuda_build` builds each with ``nvcc`` for ``sm_90a``
+at first use and binds its plain C entry point with ``ctypes``; they
+launch on PyTorch's current stream.  The launch shapes are chosen here:
+B4's lanes per row and rows per block by :func:`lanes_per_row` and
+:func:`rows_per_block`, B4w's mode and rows per block by
+:func:`wide_mode` and :func:`wide_rows_per_block`.
 
 :func:`mont_pow_b4` takes a CPU tensor to the plain version,
 :func:`mont_pow_digits_plain` (re-exported here from :mod:`montgomery`),
-and a CUDA tensor to the kernel.  There is no fallback: a CUDA tensor
-that the kernel does not take, a failed build or a failed launch raises.
+and a CUDA tensor to B4 up to :data:`REGISTER_MAX_LIMBS` limbs and to B4w
+(:func:`mont_pow_b4w`) past them: the variant is decided by the
+modulus' width before the launch.  There is no fallback: a CUDA tensor
+that a kernel does not take, a failed build or a failed launch raises.
 """
 
 from __future__ import annotations
@@ -24,25 +30,33 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .host import limbs_to_ints
+from .host import ints_to_limbs, limbs_to_ints
 from .modexp_kernel import _check_digits
-from .montgomery import MontCtx, mont_ctx_arrays, mont_pow_digits_plain
+from .montgomery import MontCtx, mont_pow_digits_plain
 
-__all__ = ["mont_pow_b4", "mont_pow_digits_plain", "load", "MAX_LIMBS"]
+__all__ = ["mont_pow_b4", "mont_pow_b4w", "mont_pow_digits_plain", "load",
+           "load_wide", "REGISTER_MAX_LIMBS"]
 
 SOURCE = cuda_build.CSRC / "limb_modexp.cu"
-MAX_LIMBS = 768                  # 12,288-bit moduli (n^3 of 4096-bit keys)
+WIDE_SOURCE = cuda_build.CSRC / "limb_modexp_wide.cu"
+REGISTER_MAX_LIMBS = 768         # B4's widest modulus (12,288 bits, n^3 of
+# a 4096-bit key); wider moduli run on B4w
 SMEM_MAX = 232448                # shared memory a block may use (227 KB)
 WORDS_PER_LANE = (1, 2, 3, 4, 8, 12)  # the cases of limb_modexp_launch
 BLOCK_THREADS = 128              # threads of a block (rows x lanes)
 WARPS_PER_SM = 6                 # warps a batch should give each SM
+WIDE_LANES = 32                  # B4w: a warp a row
+WIDE_OPERANDS = 4                # B4w: n, t, acc, x, nw words each
+WIDE_MAX_ROWS = 8                # B4w: rows (warps) of a block
 
 _lib = None
-build_log = ""       # nvcc / ptxas output of the build this process made
+_wide_lib = None
+build_log = ""       # nvcc / ptxas output of the B4 build this process made
+build_log_wide = ""  # and of the B4w build
 
 
 def load():
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load kernel B4's library."""
     global _lib, build_log
     if _lib is not None:
         return _lib
@@ -54,6 +68,22 @@ def load():
     lib.limb_modexp_row_bytes.argtypes = [ci, ci]
     lib.limb_modexp_row_bytes.restype = ci
     _lib = lib
+    return lib
+
+
+def load_wide():
+    """Build (once per source hash) and load kernel B4w's library."""
+    global _wide_lib, build_log_wide
+    if _wide_lib is not None:
+        return _wide_lib
+    lib, build_log_wide = cuda_build.build(WIDE_SOURCE)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.limb_modexp_wide_launch.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci,
+                                            vp, ci, ci, ci, ci, ci, vp, vp]
+    lib.limb_modexp_wide_launch.restype = ci
+    lib.limb_modexp_wide_row_bytes.argtypes = [ci, ci, ci]
+    lib.limb_modexp_wide_row_bytes.restype = ctypes.c_longlong
+    _wide_lib = lib
     return lib
 
 
@@ -101,57 +131,83 @@ def rows_per_block(row_bytes: int, max_rows: int) -> int:
 
 
 def _kernel_ctx(ctx: MontCtx, n_words: int | None = None) -> tuple:
-    """(n, n0, r2, L') as the kernel takes them: int32 16-bit limbs of n
+    """(n, n0, r2, L') as the kernels take them: int32 16-bit limbs of n
     and R^2 mod n, and the low 32 bits of -n^-1 mod R, each shared ([L'],
     [1]) or per row ([B, L'], [B]), with L' = 2 ``n_words`` limbs
     (default: L rounded up to even).  Where L' > L, n is padded with zero
-    limbs and the constants are rebuilt on the host for R = 2^(16 L')."""
+    limbs and R^2 mod n is rebuilt on the host for R = 2^(16 L') (n0
+    depends on n mod 2^32 alone)."""
     n, nprime, r2 = ctx.n, ctx.nprime, ctx.r2
     L = 2 * (n_words or -(-ctx.n_limbs // 2))
+    n0 = nprime[..., 0] | (nprime[..., 1] << 16)
     if L != ctx.n_limbs:
         mods = limbs_to_ints(n.reshape(-1, n.shape[-1]).cpu().numpy())
-        arrs = [mont_ctx_arrays(m, L) for m in mods]
-        n, nprime, r2 = (torch.as_tensor(
-            np.stack([a[f] for a in arrs]).astype(np.int64),
-            device=ctx.device).reshape(ctx.n.shape[:-1] + (L,))
-            for f in range(3))
-    n0 = nprime[..., 0] | (nprime[..., 1] << 16)
+        rr = 1 << (32 * L)
+        n, r2 = (torch.as_tensor(ints_to_limbs(vals, L).astype(np.int64),
+                                 device=ctx.device).reshape(
+                                     ctx.n.shape[:-1] + (L,))
+                 for vals in (mods, [rr % m for m in mods]))
     n0 = torch.where(n0 >= 1 << 31, n0 - (1 << 32), n0)   # as int32 bits
     return (n.to(torch.int32).contiguous(),
             n0.to(torch.int32).reshape(-1).contiguous(),
             r2.to(torch.int32).contiguous(), L)
 
 
-def check_width(ctx: MontCtx) -> None:
-    """Raise ValueError, naming the modulus bits, where the kernel cannot
-    take ``ctx``'s width (more than :data:`MAX_LIMBS` limbs)."""
-    L = ctx.n_limbs
-    if L > MAX_LIMBS:
-        bits = max(v.bit_length() for v in limbs_to_ints(
-            ctx.n.reshape(-1, L).cpu().numpy()))
-        raise ValueError(
-            f"kernel B4 takes moduli of at most {16 * MAX_LIMBS} bits "
-            f"({MAX_LIMBS} limbs), got a {bits}-bit modulus in {L} limbs")
+def variant(n_limbs: int) -> str:
+    """The kernel that a CUDA call of :func:`mont_pow_b4` launches for a
+    modulus of ``n_limbs`` limbs: "B4" up to :data:`REGISTER_MAX_LIMBS`,
+    "B4w" past it."""
+    return "B4" if n_limbs <= REGISTER_MAX_LIMBS else "B4w"
 
 
-def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
-                window: int = 4) -> torch.Tensor:
-    """base^e mod n by the fixed-window Montgomery ladder.
+def wide_words(L: int) -> int:
+    """Words of a row of L limbs as B4w holds it: L / 2 rounded up to a
+    multiple of :data:`WIDE_LANES` (the extra words are zero, and R grows
+    with them)."""
+    return WIDE_LANES * -(-L // (2 * WIDE_LANES))
 
-    base: limbs [B, L] (or [L]) < R; digits: int [D] shared or [B, D] per
-    row, MSB-first base-2^window; ctx fields [L] shared or [B, L] per row.
-    Returns the canonical base^e mod n as int64 limbs [B, L], equal to
-    :func:`mont_pow_digits_plain`.  The kernel runs :func:`lanes_per_row`
-    lanes a row (by the batch and the device's SMs), in blocks of
-    :data:`BLOCK_THREADS` threads (fewer rows where shared memory does
-    not hold them).  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel and adds one to
-    ``mont_pow_b4.launches``.
-    """
-    if base.device.type == "cpu":
-        return mont_pow_digits_plain(ctx, base, digits, window)
+
+def wide_row_bytes(nw: int, window: int, mode: int) -> int:
+    """Shared-memory bytes of one B4w row of ``nw`` words (the C side's
+    ``limb_modexp_wide_row_bytes``): the four operands and the
+    2^window-entry table (mode 0), the four operands (mode 1), none
+    (mode 2)."""
+    words = (WIDE_OPERANDS + (1 << window) if mode == 0
+             else WIDE_OPERANDS if mode == 1 else 0)
+    return 4 * words * nw
+
+
+def wide_mode(nw: int, window: int) -> int:
+    """Where B4w keeps a row of ``nw`` words: all in shared memory (0)
+    where one row's operands and table fit in :data:`SMEM_MAX`, else the
+    table in a global scratch tensor (1; at window 4 past 2,905 words, a
+    92,960-bit modulus), else the operands too (2; past 14,528 words)."""
+    for mode in (0, 1):
+        if wide_row_bytes(nw, window, mode) <= SMEM_MAX:
+            return mode
+    return 2
+
+
+def wide_rows_per_block(rows: int, row_bytes: int, sms: int) -> int:
+    """Rows (warps) of a B4w block for a batch of ``rows`` on ``sms`` SMs:
+    enough blocks for every SM first (one row a block up to ``sms``
+    rows), then as many rows as shared memory holds, at most
+    :data:`WIDE_MAX_ROWS`.  A block's rows share nothing, so the rule
+    only spreads a small batch over the SMs; a large one is held by
+    shared memory either way."""
+    rb = min(WIDE_MAX_ROWS, max(1, rows // sms))
+    if row_bytes:
+        rb = min(rb, SMEM_MAX // row_bytes)
+    return max(rb, 1)
+
+
+def _operands(ctx: MontCtx, base: torch.Tensor, digits, window: int,
+              kernel: str) -> tuple:
+    """Check a CUDA call of B4 or B4w: (base limbs [B, L], int32 digits,
+    squeeze) or ValueError."""
     if base.device.type != "cuda":
-        raise ValueError(f"kernel B4 runs on CUDA tensors, got {base.device}")
+        raise ValueError(f"kernel {kernel} runs on CUDA tensors, got "
+                         f"{base.device}")
     squeeze = base.dim() == 1
     if squeeze:
         base = base[None]
@@ -159,10 +215,8 @@ def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
     if base.dim() != 2 or base.shape[-1] != L:
         raise ValueError(f"base must be limbs [B, {L}], got "
                          f"{tuple(base.shape)}")
-    check_width(ctx)
     B = base.shape[0]
-    per_row_ctx = ctx.n.dim() == 2
-    if per_row_ctx and ctx.n.shape[0] != B:
+    if ctx.n.dim() == 2 and ctx.n.shape[0] != B:
         raise ValueError(f"per-row context has {ctx.n.shape[0]} rows, base "
                          f"has {B}")
     for name, f in ctx._asdict().items():
@@ -173,10 +227,48 @@ def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
         raise ValueError(f"window {window} outside 1..8")
     digits = torch.as_tensor(digits, device=base.device)
     _check_digits(digits, B, window)
-    digits = digits.to(torch.int32).contiguous()
+    return base, digits.to(torch.int32).contiguous(), squeeze
+
+
+def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
+                window: int = 4) -> torch.Tensor:
+    """base^e mod n by the fixed-window Montgomery ladder.
+
+    base: limbs [B, L] (or [L]) < R; digits: int [D] shared or [B, D] per
+    row, MSB-first base-2^window; ctx fields [L] shared or [B, L] per row.
+    Returns the canonical base^e mod n as int64 limbs [B, L], equal to
+    :func:`mont_pow_digits_plain`.  A CPU tensor runs the plain version.
+    On a CUDA tensor a modulus of at most :data:`REGISTER_MAX_LIMBS`
+    limbs launches B4, with :func:`lanes_per_row` lanes a row (by the
+    batch and the device's SMs), in blocks of :data:`BLOCK_THREADS`
+    threads (fewer rows where shared memory does not hold them), and adds
+    one to ``mont_pow_b4.launches``; a wider one launches B4w
+    (:func:`mont_pow_b4w`, which counts its own launches).
+    """
+    if base.device.type == "cpu":
+        return mont_pow_digits_plain(ctx, base, digits, window)
+    if variant(ctx.n_limbs) == "B4w":
+        return mont_pow_b4w(ctx, base, digits, window)
+    base, digits, squeeze = _operands(ctx, base, digits, window, "B4")
     sms = torch.cuda.get_device_properties(base.device).multi_processor_count
     out = launch(ctx, base, digits, window,
-                 lanes_per_row(-(-L // 2), B, sms))
+                 lanes_per_row(-(-ctx.n_limbs // 2), base.shape[0], sms))
+    return out[0] if squeeze else out
+
+
+def mont_pow_b4w(ctx: MontCtx, base: torch.Tensor, digits,
+                 window: int = 4) -> torch.Tensor:
+    """:func:`mont_pow_b4`'s contract on kernel B4w, at any width: a warp
+    a row, the row padded to :func:`wide_words`, its operands where
+    :func:`wide_mode` puts them, :func:`wide_rows_per_block` rows a
+    block.  A CPU tensor runs the plain version; a CUDA tensor launches
+    B4w and adds one to ``mont_pow_b4w.launches``.  :func:`mont_pow_b4`
+    calls it past :data:`REGISTER_MAX_LIMBS` limbs; the tests also call
+    it at B4's widths."""
+    if base.device.type == "cpu":
+        return mont_pow_digits_plain(ctx, base, digits, window)
+    base, digits, squeeze = _operands(ctx, base, digits, window, "B4w")
+    out = launch_wide(ctx, base, digits, window)
     return out[0] if squeeze else out
 
 
@@ -213,3 +305,36 @@ def launch(ctx: MontCtx, base: torch.Tensor, digits: torch.Tensor,
 
 
 mont_pow_b4.launches = 0
+
+
+def launch_wide(ctx: MontCtx, base: torch.Tensor, digits: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """Kernel B4w on checked CUDA operands (base limbs [B, L], int32
+    digits); adds one to ``mont_pow_b4w.launches``."""
+    B, L = base.shape
+    nw = wide_words(L)
+    mode = wide_mode(nw, window)
+    n, n0, r2, Lk = _kernel_ctx(ctx, nw)
+    x = torch.nn.functional.pad(base.to(torch.int32), (0, Lk - L)
+                                ).contiguous()
+    lib = load_wide()
+    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
+    rb = wide_rows_per_block(B, wide_row_bytes(nw, window, mode), sms)
+    out = torch.empty((B, Lk), dtype=torch.int32, device=base.device)
+    per_row = (1 << window) + (WIDE_OPERANDS if mode == 2 else 0)
+    scratch = torch.empty((B, per_row, nw) if mode else (0,),
+                          dtype=torch.int32, device=base.device)
+    stream = torch.cuda.current_stream(base.device).cuda_stream
+    with torch.cuda.device(base.device):
+        err = lib.limb_modexp_wide_launch(
+            x.data_ptr(), digits.data_ptr(), digits.shape[-1],
+            int(digits.dim() == 2), n.data_ptr(), n0.data_ptr(),
+            r2.data_ptr(), int(ctx.n.dim() == 2), out.data_ptr(), B, nw,
+            window, rb, mode, scratch.data_ptr() if mode else None, stream)
+    if err:
+        raise RuntimeError(f"kernel B4w launch failed: cudaError {err}")
+    cuda_build.count_launch(mont_pow_b4w)
+    return out[:, :L].to(torch.int64)
+
+
+mont_pow_b4w.launches = 0

@@ -84,6 +84,20 @@ COX_EPS = 0.05
 MAX_MODULUS_BITS = 8661
 
 
+def _inverse_table(a: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """[i, j] = a_i^-1 mod m_j for primes m_j below 2^14 that divide no
+    a_i (int64 [len(a), len(m)]), by Fermat: a_i^(m_j - 2) mod m_j."""
+    mod = m[None, :]
+    x = a[:, None] % mod
+    e = np.broadcast_to(mod - 2, x.shape)
+    out = np.ones_like(x)
+    while e.any():
+        out = np.where(e & 1, out * x % mod, out)
+        x = x * x % mod
+        e = e >> 1
+    return out
+
+
 def _primes_descending(count: int) -> list[int]:
     """``count`` largest primes below MCAP (descending)."""
     out = []
@@ -252,27 +266,23 @@ class Rns2Spec:
         # ext1 rows (c, i in B1) -> cols j in B2:
         #   A[(c,i), j] = (w_ci * (M/m_i) * N * M^-1 * c_j) mod m'_j,
         #   w_ci = (2^(7c) * k1_i) mod m_i, k1_i = (-N^-1 (M/m_i)^-1) mod m_i
-        # (the extra c_j factor lands the dot result in sigma form)
-        ncj = [(N % mj) * minv2[j] % mj * cs[j] % mj
-               for j, mj in enumerate(b2)]
-        T1 = np.zeros((2 * k, k), dtype=np.int64)
-        for i, mi in enumerate(b1):
-            Mdi = M // mi
-            k1 = (pow(-N, -1, mi) * pow(Mdi, -1, mi)) % mi
-            w0 = k1
-            w1 = ((1 << CHUNK) * k1) % mi
-            for j, mj in enumerate(b2):
-                base = (Mdi % mj) * ncj[j] % mj
-                T1[i, j] = (w0 * base) % mj
-                T1[k + i, j] = (w1 * base) % mj
+        # (the extra c_j factor lands the dot result in sigma form).
+        # (M/m_i) mod m'_j = (M mod m'_j) m_i^-1 mod m'_j (the primes are
+        # distinct), so the k x k entries are small-integer arithmetic
+        ncj = np.asarray([(N % mj) * minv2[j] % mj * cs[j] % mj
+                          for j, mj in enumerate(b2)], dtype=np.int64)
+        k1 = np.asarray([pow(-N, -1, mi) * pow(M // mi, -1, mi) % mi
+                         for mi in b1], dtype=np.int64)[:, None]
+        mdi = np.asarray([M % mj for mj in b2], dtype=np.int64) \
+            * _inverse_table(m1, m2) % m2                   # [i, j]
+        base = mdi * ncj % m2
+        T1 = np.concatenate([k1 * base % m2,
+                             ((1 << CHUNK) * k1 % m1[:, None]) * base % m2])
 
         # ext2 rows (c, j in B2) -> cols i in B1: (2^(7c) * (M2/m'_j)) mod m_i
-        T2 = np.zeros((2 * k, k), dtype=np.int64)
-        for j, mj in enumerate(b2):
-            M2dj = M2 // mj
-            for i, mi in enumerate(b1):
-                T2[j, i] = M2dj % mi
-                T2[k + j, i] = ((1 << CHUNK) * M2dj) % mi
+        m2dj = np.asarray([M2 % mi for mi in b1], dtype=np.int64) \
+            * _inverse_table(m2, m1) % m1                   # [j, i]
+        T2 = np.concatenate([m2dj, (1 << CHUNK) * m2dj % m1])
 
         return dict(
             ic1=ic1.astype(np.int32), ic2=ic2.astype(np.int32),

@@ -9,13 +9,17 @@ Toeplitz product (:mod:`limbmm`).
 
 CRT path (level 1; not in the reference, bit-identical to its output):
 m = CRT(m_p, m_q) with m_p = L_p(c^(p-1) mod p^2) * h_p mod p, two
-half-width ladders.  At level 2 ``crt=True`` is dropped, as in the JAX
-package, and the generic path runs.
+half-width ladders on the RNS engine (:func:`crt_decrypt_kernel_mm`), or,
+where p^2 or q^2 is past its width (keys over 8,660 bits), on the limb
+Montgomery ladder (:func:`crt_decrypt_kernel`, kernel B4 or B4w on a CUDA
+tensor).  At level 2 ``crt=True`` is dropped, as in the JAX package, and
+the generic path runs.
 
 Where the RNS engine cannot take n^(s+1) (``DeviceKey.limb_route``: level
-2 of a 4096-bit key) the generic path is :func:`decrypt_kernel`, the JAX
-package's limb Montgomery kernel: c^lambda on the fixed-window limb
-ladder (kernel B4 on a CUDA tensor), then the same recovery.
+2 of a 4096-bit key, both levels of an 8192-bit key) the generic path is
+:func:`decrypt_kernel`, the JAX package's limb Montgomery kernel:
+c^lambda on the fixed-window limb ladder (kernel B4 on a CUDA tensor up
+to 768 limbs, B4w past them), then the same recovery.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from ..bigint import host, vpu
 from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
+from ..bigint import rns2
 from .keys import (DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, LIMB_WINDOW, MIXED,
                    Ciphertext, DeviceKey, SecretKey, decode_batch)
 
@@ -160,26 +165,25 @@ class _CrtMmPlans:
             host.int_to_limbs(q, Lp).astype("int64"), device=device)
 
 
-def crt_decrypt_kernel_mm(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
-                          eng_p, eng_q, ep_exp: int, eq_exp: int
-                          ) -> torch.Tensor:
-    """CRT decryption: every limb multiply is a Toeplitz product and both
-    half-width modexps run on the sliding-window ladder (shared
-    exponents p-1 / q-1).  c: limbs [..., 2L]; returns m limbs [..., L]."""
+def _crt_combine(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
+                 ladder_p, ladder_q) -> torch.Tensor:
+    """CRT decryption around two half-width ladders: ``ladder_p`` maps
+    c mod p^2 (limbs [..., Lh]) to c^(p-1) mod p^2, ``ladder_q`` the same
+    mod q^2.  Every other limb multiply is a Toeplitz product: the fold
+    of c, the Hensel division L_p(u) = (u-1)/p, the products by h_p / h_q
+    and the Garner step m = mp + p ((mq - mp) p^-1 mod q).  c: limbs
+    [..., 2L]; returns m limbs [..., L]."""
     L = dk.L
     Lh, Lp = pl.Lh, pl.Lp
 
-    def half(fold, br2, eng, e_exp, div, hplan, br1):
+    def half(fold, br2, ladder, div, hplan, br1):
         cm = lm.fold_mod(c, fold, br2)                       # c mod p^2
-        u = eng.pow_shared(eng.from_limbs(cm), e_exp)        # c^(p-1)
-        um1 = _sub_one(eng.to_limbs_mod(u)[..., :Lh])
+        um1 = _sub_one(ladder(cm)[..., :Lh])                 # c^(p-1) - 1
         lval = lm.const_mul(um1, div)[..., :Lp]              # L_p(u) < p
         return lm.modmul_const(lval, hplan, br1)             # * h_p mod p
 
-    mp = half(pl.fold_p2, pl.br_p2, eng_p, ep_exp, pl.div_p, pl.hp,
-              pl.br_p)
-    mq = half(pl.fold_q2, pl.br_q2, eng_q, eq_exp, pl.div_q, pl.hq,
-              pl.br_q)
+    mp = half(pl.fold_p2, pl.br_p2, ladder_p, pl.div_p, pl.hp, pl.br_p)
+    mq = half(pl.fold_q2, pl.br_q2, ladder_q, pl.div_q, pl.hq, pl.br_q)
 
     # m = mp + p * ((mq - mp) * p^-1 mod q)
     qb = pl.q_limbs.expand(mp.shape)
@@ -193,12 +197,47 @@ def crt_decrypt_kernel_mm(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
     return m
 
 
+def crt_decrypt_kernel_mm(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
+                          eng_p, eng_q, ep_exp: int, eq_exp: int
+                          ) -> torch.Tensor:
+    """CRT decryption: every limb multiply is a Toeplitz product and both
+    half-width modexps run on the sliding-window ladder (shared
+    exponents p-1 / q-1).  c: limbs [..., 2L]; returns m limbs [..., L]."""
+    def rns_ladder(eng, e_exp):
+        return lambda cm: eng.to_limbs_mod(
+            eng.pow_shared(eng.from_limbs(cm), e_exp))
+
+    return _crt_combine(dk, c, pl, rns_ladder(eng_p, ep_exp),
+                        rns_ladder(eng_q, eq_exp))
+
+
+def crt_decrypt_kernel(dk: DeviceKey, c: torch.Tensor, pl: _CrtMmPlans,
+                       ctx_p2, ctx_q2, ep_digits, eq_digits,
+                       window: int = LIMB_WINDOW) -> torch.Tensor:
+    """CRT decryption on the limb route: c^(p-1) mod p^2 and c^(q-1) mod
+    q^2 on the fixed-window limb Montgomery ladder
+    (``montgomery.mont_pow_digits``: kernel B4 or B4w on a CUDA tensor;
+    ep_digits / eq_digits: the MSB-first base-2^window digits of p-1 /
+    q-1; ctx_p2 / ctx_q2: the contexts of p^2 / q^2 at ``pl.Lh`` limbs),
+    then :func:`crt_decrypt_kernel_mm`'s Toeplitz steps.  The JAX
+    function takes the Hensel inverses, h_p / h_q, p^-1 mod q and p as
+    limbs; here they are the plans ``pl``.  c: limbs [..., 2L]; returns
+    m limbs [..., L]."""
+    def limb_ladder(ctx, digits):
+        return lambda cm: mont.mont_pow_digits(
+            ctx, _pad_to(cm, ctx.n_limbs), digits, window)
+
+    return _crt_combine(dk, c, pl, limb_ladder(ctx_p2, ep_digits),
+                        limb_ladder(ctx_q2, eq_digits))
+
+
 class Decryptor:
     """Batched decryption for one secret key on one torch device: the
     generic recovery path at levels 1 and 2, or CRT (``crt=True``) at
-    level 1; ``crt`` is ignored at level 2, as in the JAX package.  The
-    generic path's ladder runs on the RNS engine, or on the limb route
-    (:func:`decrypt_kernel`) past its width."""
+    level 1; ``crt`` is ignored at level 2, as in the JAX package.  Each
+    ladder runs on the RNS engine, or on the limb route past its width:
+    the generic path's by n^(s+1) (:func:`decrypt_kernel`), CRT's by p^2
+    and q^2 (:func:`crt_decrypt_kernel`)."""
 
     def __init__(self, sk: SecretKey, level: int = DEFAULT_LEVEL,
                  crt: bool = False, *, device="cuda"):
@@ -216,10 +255,20 @@ class Decryptor:
             cc = _CrtConsts(sk)
             p, q = sk.p, sk.q
             plans = _CrtMmPlans(sk, cc, 2 * self.dk.L, device=dev)
-            eng_p = make_engine(cc.p2, plans.Lh, device=dev)
-            eng_q = make_engine(cc.q2, plans.Lh, device=dev)
-            self._fn = lambda c: crt_decrypt_kernel_mm(
-                self.dk, c, plans, eng_p, eng_q, p - 1, q - 1)
+            if max(cc.p2, cc.q2).bit_length() > rns2.MAX_MODULUS_BITS:
+                ctx_p2, ctx_q2 = (mont.make_mont_ctx(m2, plans.Lh, device=dev)
+                                  for m2 in (cc.p2, cc.q2))
+                nd = mont.n_digits_for_bits(max(p, q).bit_length(),
+                                            LIMB_WINDOW)
+                ep, eq = (torch.as_tensor(mont.exp_digits(
+                    e, LIMB_WINDOW, nd), device=dev) for e in (p - 1, q - 1))
+                self._fn = lambda c: crt_decrypt_kernel(
+                    self.dk, c, plans, ctx_p2, ctx_q2, ep, eq)
+            else:
+                eng_p = make_engine(cc.p2, plans.Lh, device=dev)
+                eng_q = make_engine(cc.q2, plans.Lh, device=dev)
+                self._fn = lambda c: crt_decrypt_kernel_mm(
+                    self.dk, c, plans, eng_p, eng_q, p - 1, q - 1)
         else:
             ns = sk.n ** level
             mu = lm.ModMulConstPlan.build(pow(sk.lam, -1, ns), ns,

@@ -7,9 +7,11 @@ one public key on one torch device.
 The engine of a level is chosen by the width of its modulus n^(s+1)
 alone: the RNS engine where ``Rns2Spec`` takes it (at most
 ``rns2.MAX_MODULUS_BITS`` bits), else the limb route, the limb Montgomery
-ladder (kernel B4 on a CUDA tensor) up to ``mont_kernel.MAX_LIMBS``
-limbs.  A 4096-bit key takes the RNS engine at level 1 (n^2: 8,192 bits)
-and the limb route at level 2 (n^3: 12,288 bits, 768 limbs).
+ladder at any width (on a CUDA tensor kernel B4 up to
+``mont_kernel.REGISTER_MAX_LIMBS`` = 768 limbs, kernel B4w past it).  A
+4096-bit key takes the RNS engine at level 1 (n^2: 8,192 bits) and the
+limb route at level 2 (n^3: 12,288 bits, 768 limbs, B4); an 8192-bit key
+takes the limb route at both (n^2: 1,024 limbs, n^3: 1,536, B4w).
 
 Reference parity: PublicKey/SecretKey/Ciphertext structure follows
 paillier.go:46-69; level handling follows paillier.go:403-414.
@@ -133,25 +135,18 @@ class DeviceKey:
     def limb_route(self, level: int) -> bool:
         """True where the RNS engine cannot take n^(s+1) (more than
         ``rns2.MAX_MODULUS_BITS`` bits): that level runs on the limb
-        Montgomery ladder (kernel B4) and limb products."""
+        Montgomery ladder (kernel B4, or B4w past 768 limbs) and limb
+        products, which take every width."""
         from ..bigint.rns2 import MAX_MODULUS_BITS
         return self.pk.modulus_for_level(level).bit_length() > \
             MAX_MODULUS_BITS
 
     def check_level(self, level: int) -> None:
-        """Raise ValueError if neither engine takes this key's modulus
-        n^(s+1) at ``level``: past the RNS engine's width, the limb route
-        takes at most kernel B4's ``mont_kernel.MAX_LIMBS`` limbs."""
-        from ..bigint.mont_kernel import MAX_LIMBS
-        from ..bigint.rns2 import MAX_MODULUS_BITS
-        bits = self.pk.modulus_for_level(level).bit_length()
-        if self.limb_route(level) and self.limbs_for_level(level) > MAX_LIMBS:
-            raise ValueError(
-                f"a {self.pk.bits}-bit key at level {level} has a {bits}-bit "
-                f"modulus n^{level + 1} ({self.limbs_for_level(level)} limbs);"
-                f" the RNS engine takes moduli of at most {MAX_MODULUS_BITS} "
-                f"bits and kernel B4 at most {16 * MAX_LIMBS} bits "
-                f"({MAX_LIMBS} limbs)")
+        """Raise ValueError unless ``level`` is 1 or 2.  Every width has
+        an engine: the RNS engine up to ``rns2.MAX_MODULUS_BITS`` bits,
+        the limb route past it."""
+        if level not in (LEVEL_ONE, LEVEL_TWO):
+            raise ValueError(f"level must be 1 or 2, got {level}")
 
     def rns(self, level: int):
         """RNS engine for modulus n^(s+1), cached; raises ValueError where

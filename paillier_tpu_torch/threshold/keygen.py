@@ -7,11 +7,10 @@ keys v_i = v^(delta * s_i) mod n^2.
 
 Primes, polynomial and shares are host work.  The l verification keys
 are one batched ladder with per-row exponent digits on the limb
-Montgomery layer: kernel B4 on a CUDA device, its plain version on the
-CPU.  B4 takes moduli of at most ``mont_kernel.MAX_LIMBS`` limbs (n^2 of
-a 6144-bit key), so the generator refuses device verification keys for
-keys whose n^2 is wider when it is built; ``device_verification_keys=False``
-takes host ``pow`` for them, as in the JAX package.
+Montgomery layer at any key width: kernel B4 on a CUDA device up to 768
+limbs (n^2 of a 6144-bit key), B4w past it, the plain version on the
+CPU.  ``device_verification_keys=False`` takes host ``pow`` for them, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +23,6 @@ import torch
 
 from ..bigint import host
 from ..bigint import montgomery as mont
-from ..bigint.mont_kernel import MAX_LIMBS, check_width
 from ..ops import random as prand
 from .keys import ThresholdSecretKey
 from .safe_prime import generate_safe_prime, is_safe_prime
@@ -39,7 +37,8 @@ KEYGEN_TIMEOUT = 120.0
 @dataclass
 class ThresholdKeyGenerator:
     """(l, t)-threshold key generator for ``bits``-bit keys.  ``device``
-    is where the verification keys' ladder runs (kernel B4 on "cuda")."""
+    is where the verification keys' ladder runs (kernel B4 or B4w on
+    "cuda")."""
 
     bits: int
     l: int                      # total number of decryption servers
@@ -56,13 +55,6 @@ class ThresholdKeyGenerator:
             raise ValueError("Public key bit length must be an even number")
         if self.bits < 18:
             raise ValueError("Public key bit length must be at least 18 bits")
-        L = host.limbs_for_bits(2 * self.bits)
-        if self.device_verification_keys and L > MAX_LIMBS:
-            raise ValueError(
-                f"the verification keys of a {self.bits}-bit threshold key "
-                f"are computed mod n^2 ({2 * self.bits} bits, {L} limbs); "
-                f"kernel B4 takes moduli of at most {16 * MAX_LIMBS} bits "
-                f"({MAX_LIMBS} limbs): pass device_verification_keys=False")
         self.rng = self.rng or prand.make_rng()
 
     def _init_ps_and_qs(self):
@@ -109,12 +101,12 @@ class ThresholdKeyGenerator:
     def _verification_keys(self, v: int, shares: List[int], delta: int,
                            n2: int) -> List[int]:
         """v_i = v^(delta * s_i) mod n^2 for every server in one ladder
-        with per-row digits (thresholdkey_generator.go:246-254)."""
+        with per-row digits (thresholdkey_generator.go:246-254): kernel B4
+        or B4w by the width of n^2."""
         exps = [delta * s for s in shares]
         if not self.device_verification_keys:
             return [pow(v, e, n2) for e in exps]
         ctx = mont.make_mont_ctx(n2, device=self.device)
-        check_width(ctx)
         nd = mont.n_digits_for_bits(max(e.bit_length() for e in exps) or 1,
                                     VK_WINDOW)
         digits = torch.as_tensor(np.stack(

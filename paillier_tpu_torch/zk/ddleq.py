@@ -27,6 +27,14 @@ half-width ladders mod p^3 and mod q^3 and a Garner recombine
 this module's cache, never in the public-key ``DeviceKey``.  A secret key
 without factors proves at full width.
 
+Widths: the halves take the RNS engine, which stops at
+``rns2.MAX_MODULUS_BITS`` (8,661 bits), so ``use_crt=True`` (the default)
+runs keys of up to 5,774 bits; past them :class:`CrtN3Plans` raises in
+``make_engine``, as the JAX package's ``_CrtN3Plans`` does.  With
+``use_crt=False``, and in the verifier, every ladder and product goes
+through ``DeviceKey``, which takes every width (past the RNS engine the
+limb route: kernel B4, or B4w past 768 limbs, on a CUDA tensor).
+
 With ``mesh=`` (:func:`..parallel.make_mesh`) the flat-axis stages run
 sharded over the mesh's batch axis and are gathered, so every rank holds
 the proof of one process (:func:`_shard_flat`).

@@ -1,10 +1,9 @@
 """The port's API against the JAX package's where PRs before it left
 gaps: ``Encryptor.encrypt_zeros`` / ``encrypt_ones`` (bit-equal to the
-JAX package's from the same ``random.Random`` state), and the errors
-that name a size the port does not take (the RNS engine's modulus width
-and, past it, kernel B4's limb count at ``DeviceKey`` / ``Encryptor`` /
-``Decryptor``; kernel B4's own width check).  Tolerance: exact (limbs
-compared as uint32).
+JAX package's from the same ``random.Random`` state), the error that
+names the RNS engine's modulus width, and the widths past it, which the
+limb route takes (kernel B4 up to 768 limbs, B4w past them).  Tolerance:
+exact (limbs compared as uint32).
 """
 
 import random
@@ -54,11 +53,13 @@ def _pk(bits):
 def test_modulus_width_error():
     """A 4096-bit key at level 2 (n^3: 12,288 bits) is past the RNS
     engine: the Encryptor and Decryptor build on the limb route (kernel
-    B4 at 768 limbs) and the RNS engine of that level still refuses.  An
-    8192-bit key at level 2 (n^3: 1,536 limbs) is past both; the error
-    names the key, the level, the modulus and both limits, raised where
-    the object is built.  Level 1 of a 4096-bit key (n^2: 8192 bits)
-    takes the RNS engine."""
+    B4 at 768 limbs) and the RNS engine of that level refuses, naming the
+    key, the level, the modulus and its limit.  An 8192-bit key is past
+    it at both levels (n^2: 1,024 limbs, n^3: 1,536): its Encryptor
+    builds at levels 1 and 2 and its Decryptor at level 1 on the limb
+    route (kernel B4w; tests/test_torch_wide.py builds the rest), where
+    the RNS engine refuses both levels.  Level 1 of a 4096-bit key (n^2:
+    8192 bits) takes the RNS engine."""
     sk = _pk(4096)
     pk = sk.public()
     dk = pk.device("cpu")
@@ -72,15 +73,21 @@ def test_modulus_width_error():
     dk.check_level(1)
     dk.check_level(2)
     big = _pk(8192)
-    msg = (r"a 8192-bit key at level 2 has a 245[0-9][0-9]-bit modulus n\^3 "
-           r"\(1536 limbs\); the RNS engine takes moduli of at most 8661 "
-           r"bits and kernel B4 at most 12288 bits \(768 limbs\)")
-    with pytest.raises(ValueError, match=msg):
-        pt.Encryptor(big.public(), 2, device="cpu")
-    with pytest.raises(ValueError, match=msg):
-        pt.Decryptor(big, 2, device="cpu")
-    with pytest.raises(ValueError, match=msg):
-        big.public().device("cpu").check_level(2)
+    bpk = big.public()
+    bdk = bpk.device("cpu")
+    assert bdk.limb_route(1) and bdk.limb_route(2)
+    for level in (1, 2):
+        bdk.check_level(level)
+        assert pt.Encryptor(bpk, level, device="cpu").dk is bdk
+    pt.Decryptor(big, 1, device="cpu")
+    for level, bits in ((1, r"1638\d"), (2, r"245\d\d")):
+        with pytest.raises(ValueError, match=(
+                rf"a 8192-bit key at level {level} has a {bits}-bit modulus "
+                rf"n\^{level + 1}; the RNS engine takes moduli of at most "
+                rf"8661 bits")):
+            bdk.rns(level)
+    with pytest.raises(ValueError, match="level must be 1 or 2, got 3"):
+        bdk.check_level(3)
 
 
 def test_modulus_width_limit_is_the_specs():
@@ -91,12 +98,20 @@ def test_modulus_width_limit_is_the_specs():
 
 
 def test_b4_limb_error_names_the_modulus():
-    """Kernel B4's width check (run before any launch) names the modulus
-    bits: a 12,304-bit modulus takes 769 limbs, one over the limit; a
-    12,288-bit one (n^3 of a 4096-bit key) fits."""
+    """No modulus width raises any longer: a 12,304-bit modulus (769
+    limbs, one over the register kernel B4's 768) is kernel B4w's, a
+    12,288-bit one (n^3 of a 4096-bit key) B4's, and the ladder of both
+    (the plain version on the CPU) at 769 limbs equals pow over a short
+    exponent."""
     ctx = make_mont_ctx(_pk(12304).n, device="cpu")
-    with pytest.raises(ValueError, match=r"kernel B4 takes moduli of at most "
-                       r"12288 bits \(768 limbs\), got a 12304-bit modulus "
-                       r"in 769 limbs"):
-        mont_kernel.check_width(ctx)
-    mont_kernel.check_width(make_mont_ctx(_pk(12288).n, device="cpu"))
+    assert ctx.n_limbs == 769 and mont_kernel.variant(769) == "B4w"
+    assert mont_kernel.variant(
+        make_mont_ctx(_pk(12288).n, device="cpu").n_limbs) == "B4"
+    rng = random.Random(769)
+    n = _pk(12304).n
+    x = rng.randrange(n)
+    base = torch.as_tensor(np.asarray(
+        [[(x >> (16 * i)) & 0xFFFF for i in range(769)]], dtype=np.int64))
+    got = mont_kernel.mont_pow_b4(ctx, base, [0xB, 0x4], 4)
+    assert sum(int(v) << (16 * i) for i, v in enumerate(got[0])) == \
+        pow(x, 0xB4, n)

@@ -1,6 +1,7 @@
 """Kernels B1 (paillier_tpu_torch/csrc/rns2_sliding.cu), B2
-(csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu) and B4
-(csrc/limb_modexp.cu) and what surrounds them: the wrappers' checks, the
+(csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu), B4
+(csrc/limb_modexp.cu) and B4w (csrc/limb_modexp_wide.cu) and what
+surrounds them: the wrappers' checks, the
 tensor-core matrix packing, B3's comb entry copies, the build hash, the
 launch counters, the entry points' default device, and the threshold
 path's kernel shapes and its batched SHA-256 on the card.  This
@@ -1127,9 +1128,12 @@ def test_b4_wide_rows_take_eight_words_a_lane():
 def test_b4_rows_past_256_words_take_twelve_words_a_lane():
     """Rows of 257 to 384 words (L = 513 to 768 limbs, moduli up to
     12,288 bits, n^3 of a 4096-bit key) run 32 lanes of 12 words (the
-    kernel's widest case), padded to 384 words, whatever the batch; one
-    limb more is past MAX_LIMBS."""
-    assert mk.MAX_LIMBS == 768 and max(mk.WORDS_PER_LANE) == 12
+    register kernel's widest case), padded to 384 words, whatever the
+    batch.  The variant rule: the register kernel B4 takes moduli up to
+    768 limbs and kernel B4w every one past them (one limb more: 769),
+    a warp a row on 32-word multiples, with its table in shared memory
+    up to 2,905 words at window 4 and in global memory past them."""
+    assert mk.REGISTER_MAX_LIMBS == 768 and max(mk.WORDS_PER_LANE) == 12
     for nw in range(257, 385):
         for rows in (1, 64, 4096, 10 ** 6):
             assert mk.lanes_per_row(nw, rows, 132) == 32
@@ -1137,9 +1141,9 @@ def test_b4_rows_past_256_words_take_twelve_words_a_lane():
     # one row's table at window 4: 16 entries of 384 words (24,576 B)
     assert 16 * 384 * 4 == 24576
     assert mk.rows_per_block(24576, 128 // 32) == 4
-    ctx = tmont.make_mont_ctx(_odd(random.Random(1), 16 * 769), device="cpu")
-    with pytest.raises(ValueError, match=r"at most 12288 bits \(768 limbs\)"):
-        mk.check_width(ctx)
+    assert (mk.variant(768), mk.variant(769)) == ("B4", "B4w")
+    assert mk.wide_words(769) == 416 and mk.wide_mode(416, 4) == 0
+    assert (mk.wide_mode(2880, 4), mk.wide_mode(2912, 4)) == (0, 1)
 
 
 @pytest.mark.cuda
@@ -1488,3 +1492,177 @@ def test_probe_sass_loops_hold_their_ops(cuda_device):
         mod.KERNEL.load()
         code = cuda_build.sass(mod.KERNEL.source)
         assert sass_faults(code, mod.SASS_EXPECT) == [], mod.__name__
+
+
+def _b4w_rows(rng, moduli, rows, L, device):
+    xs = [rng.randrange(moduli[i % len(moduli)]) for i in range(rows)]
+    return xs, torch.as_tensor(host.ints_to_limbs(xs, L).astype(np.int64),
+                               device=device)
+
+
+def _wide_launch(fn):
+    """fn()'s result, and the (B4, B4w) launches it made."""
+    before = (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches)
+    out = fn()
+    return out, (mk.mont_pow_b4.launches - before[0],
+                 mk.mont_pow_b4w.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,rows,window,mode", [
+    (16384, 33, 4, 0), (24576, 17, 4, 0), (16384, 2, 8, 1),
+    (16 * 5824, 2, 4, 1)])
+def test_kernel_b4w_matches_plain_on_cuda(cuda_device, bits, rows, window,
+                                          mode):
+    """Kernel B4w through mont_pow_b4 past 768 limbs: L = 1,024 (n^2 of an
+    8192-bit key) and 1,536 (its n^3) with the table in shared memory,
+    L = 1,024 at window 8 and L = 5,824 (2,912 words) at window 4 with
+    the table in global memory; shared and per-row digits bit-identical
+    to the plain ladder on the card, one B4w launch and no B4 launch a
+    call, and 2 rows equal to Python's pow."""
+    rng = random.Random(bits + window)
+    m = _odd(rng, bits)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    L = ctx.n_limbs
+    assert mk.variant(L) == "B4w"
+    assert mk.wide_mode(mk.wide_words(L), window) == mode
+    xs, x = _b4w_rows(rng, [m], rows, L, cuda_device)
+    nd = 4 if mode else 8
+    per = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(window * nd),
+                                               window, nd) for _ in xs]),
+                          device=cuda_device)
+    for dig in (per[0], per):
+        got, launches = _wide_launch(lambda: mk.mont_pow_b4(ctx, x, dig,
+                                                            window))
+        assert launches == (0, 1)
+        assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig,
+                                                            window))
+    e = rng.getrandbits(128) | 1 << 127
+    got = mk.mont_pow_b4(ctx, x[:2], torch.as_tensor(
+        exp_digits(e, 4, 32), device=cuda_device), 4)
+    assert host.limbs_to_ints(got.cpu().numpy()) == [pow(v, e, m)
+                                                     for v in xs[:2]]
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_per_row_moduli_on_cuda(cuda_device):
+    """B4w with per-row moduli at 1,100 limbs (padded to 1,152, R^2
+    rebuilt for the padded R) and per-row digits: bit-identical to the
+    plain ladder on 9 rows, equal to pow on all."""
+    rng = random.Random(1100)
+    moduli = [_odd(rng, 16 * 1100) for _ in range(9)]
+    ctx = tmont.stack_mont_ctx(moduli, 1100, device=cuda_device)
+    assert mk.wide_words(1100) == 576
+    xs, x = _b4w_rows(rng, moduli, 9, 1100, cuda_device)
+    es = [rng.getrandbits(32) for _ in xs]
+    dig = torch.as_tensor(np.stack([exp_digits(e, 4, 8) for e in es]),
+                          device=cuda_device)
+    got, launches = _wide_launch(lambda: mk.mont_pow_b4(ctx, x, dig, 4))
+    assert launches == (0, 1)
+    assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig, 4))
+    assert host.limbs_to_ints(got.cpu().numpy()) == [
+        pow(v, e, n) for v, e, n in zip(xs, es, moduli)]
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_operands_in_global_memory_on_cuda(cuda_device):
+    """Past 14,528 words (465k-bit moduli) B4w keeps a row's operands in
+    global memory too (mode 2): one row at 14,560 words, window 1, a
+    3-bit exponent, equal to pow (the plain ladder at this width does not
+    fit the card's memory)."""
+    rng = random.Random(14560)
+    m = _odd(rng, 32 * 14560)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    assert mk.wide_mode(mk.wide_words(ctx.n_limbs), 1) == 2
+    xs, x = _b4w_rows(rng, [m], 1, ctx.n_limbs, cuda_device)
+    got, launches = _wide_launch(lambda: mk.mont_pow_b4(
+        ctx, x, torch.as_tensor([1, 0, 1], device=cuda_device), 1))
+    assert launches == (0, 1)
+    assert host.limbs_to_ints(got.cpu().numpy()) == [pow(xs[0], 5, m)]
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_matches_register_b4_at_l768_on_cuda(cuda_device):
+    """At L = 768, the register kernel's widest width, B4w called
+    directly (mont_pow_b4w) and B4 (mont_pow_b4) give the same limbs on
+    33 rows over 8 per-row digits: one launch of each."""
+    rng = random.Random(768)
+    m = _odd(rng, 12288)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    xs, x = _b4w_rows(rng, [m], 33, 768, cuda_device)
+    dig = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(32), 4, 8)
+                                    for _ in xs]), device=cuda_device)
+    reg, launches = _wide_launch(lambda: mk.mont_pow_b4(ctx, x, dig, 4))
+    assert launches == (1, 0)
+    wide, launches = _wide_launch(lambda: mk.mont_pow_b4w(ctx, x, dig, 4))
+    assert launches == (0, 1)
+    assert torch.equal(wide, reg)
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_failed_launch_raises(cuda_device, monkeypatch):
+    """No fallback: a launch that the library refuses raises and counts
+    nothing (the register kernel and the plain ladder are not tried)."""
+    rng = random.Random(1)
+    m = _odd(rng, 16384)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    _, x = _b4w_rows(rng, [m], 2, 1024, cuda_device)
+    lib = mk.load_wide()
+    assert lib.limb_modexp_wide_row_bytes(512, 4, 0) == \
+        mk.wide_row_bytes(512, 4, 0)
+
+    class Refusing:
+        limb_modexp_wide_row_bytes = lib.limb_modexp_wide_row_bytes
+
+        @staticmethod
+        def limb_modexp_wide_launch(*args):
+            return 1                          # cudaErrorInvalidValue
+
+    monkeypatch.setattr(mk, "_wide_lib", Refusing)
+    monkeypatch.setattr(mk, "mont_pow_digits_plain", None)
+    before = (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches)
+    with pytest.raises(RuntimeError, match="kernel B4w launch failed"):
+        mk.mont_pow_b4(ctx, x, [1, 2], 4)
+    assert (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches) == before
+
+
+@pytest.mark.cuda
+def test_8192_bit_round_trip_on_cuda(cuda_device):
+    """An 8192-bit key on the card, 4 rows: level 1 Encryptor (B4w at
+    L = 1,024), Decryptor(crt=True) (two B1 ladders at k = 704) and
+    crt=False (B4w), level 2 Encryptor and Decryptor (B4w at L = 1,536),
+    each with its exact launches; 2 rows of each level equal the host
+    formula (r^(n^s) by GMP where the native helper loads)."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch import native
+    sk_, pk = pt.keygen(8192, random.Random(8192), device=cuda_device)
+    dk = pk.device(cuda_device)
+    assert dk.limb_route(1) and dk.limb_route(2)
+    launches = (sk.rns2_pow_sliding_b1, mx.rns2_pow_b2, mk.mont_pow_b4,
+                mk.mont_pow_b4w)
+
+    def run(fn, want):
+        before = [w.launches for w in launches]
+        out = fn()
+        assert [w.launches - b for w, b in zip(launches, before)] == want
+        return out
+
+    rng = random.Random(0x8192)
+    for level, mod in ((1, pk.n2), (2, pk.n3)):
+        ms = [rng.randrange(pk.n ** level) for _ in range(3)] + [0]
+        rs = [rng.randrange(1, pk.n) for _ in ms]
+        ct = run(lambda: pt.Encryptor(pk, level, device=cuda_device)
+                 .encrypt(ms, rs), [0, 0, 0, 1])
+        rn = (native.powm_batch(rs[:2], pk.n ** level, mod)
+              if native.available() else
+              [pow(r, pk.n ** level, mod) for r in rs[:2]])
+        gm = [(1 + m * pk.n + (level - 1) * m * (m - 1) // 2 * pk.n2) % mod
+              for m in ms[:2]]                     # (1 + n)^m, binomially
+        assert pt.decode_batch(ct.c[:2]) == [
+            g * r % mod for g, r in zip(gm, rn)]
+        dec = pt.Decryptor(sk_, level, device=cuda_device)
+        assert run(lambda: dec.decrypt(ct), [0, 0, 0, 1]) == ms
+        if level == 1:
+            crt = pt.Decryptor(sk_, 1, crt=True, device=cuda_device)
+            assert run(lambda: crt.decrypt(ct), [2, 0, 0, 0]) == ms
+

@@ -220,8 +220,11 @@ def test_width_rule_and_errors():
     4096-bit key takes the RNS engine at level 1 (n^2: 8,192 bits) and
     the limb route at level 2 (n^3: 12,288 bits, B4's 768 limbs), where
     the Encryptor and Decryptor build and the RNS engine still refuses.
-    An 8192-bit key at level 2 (and at level 1) is past both and raises,
-    naming B4's limit, where the object is built."""
+    An 8192-bit key takes the limb route at both levels (n^2: 1,024
+    limbs, n^3: 1,536, kernel B4w's widths): its Encryptor builds at
+    levels 1 and 2 (regular; the alternative one's host pow of h_2 at
+    24,576 bits is left to the card) and its Decryptor at level 1, and
+    neither level builds an RNS engine."""
     sk = _sk(4096, 1)
     pk = sk.public()
     dk = pk.device(CPU)
@@ -236,15 +239,15 @@ def test_width_rule_and_errors():
                        r"most 8661 bits"):
         dk.rns(2)
     big = _sk(8192, 2)
-    msg = (r"a 8192-bit key at level {} has a \d+-bit modulus n\^{} \({} "
-           r"limbs\); the RNS engine takes moduli of at most 8661 bits and "
-           r"kernel B4 at most 12288 bits \(768 limbs\)")
-    for level, limbs in ((2, 1536), (1, 1024)):
-        m = msg.format(level, level + 1, limbs)
-        with pytest.raises(ValueError, match=m):
-            pt.Encryptor(big.public(), level, device=CPU)
-        with pytest.raises(ValueError, match=m):
-            pt.Decryptor(big, level, device=CPU)
+    bpk = big.public()
+    bdk = bpk.device(CPU)
+    assert bdk.limb_route(1) and bdk.limb_route(2)
+    assert [bdk.ctx_for_level(lv).n_limbs for lv in (1, 2)] == [1024, 1536]
+    for level in (1, 2):
+        bdk.check_level(level)
+        assert pt.Encryptor(bpk, level, device=CPU).dk is bdk
+    assert pt.Decryptor(big, 1, device=CPU).dk is big.device(CPU)
+    assert not bdk._rns and not big.device(CPU)._rns
 
 
 def test_4096_level2_pow_and_mul_take_the_limb_ladder(monkeypatch):

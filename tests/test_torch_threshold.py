@@ -183,24 +183,23 @@ def test_generator_validation():
 
 
 def test_b4_width_error_at_4096_bits():
-    """Device verification keys of a 4096-bit key need n^2 at 512 limbs,
-    within kernel B4's 768: the generator builds, and its ladder at
-    L = 512 (the plain version on the CPU) equals pow on a 4096-bit n's
-    n^2 for a few rows with short exponents.  An 8192-bit key (n^2 at
-    1,024 limbs) raises a named error when the generator is built."""
-    with pytest.raises(ValueError, match=r"8192-bit threshold key.*B4.*"
-                       r"12288 bits \(768 limbs\)"):
-        tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU)
+    """Device verification keys of a 4096-bit key need n^2 at 512 limbs
+    (kernel B4) and of an 8192-bit key at 1,024 (kernel B4w): both
+    generators build, and the ladder (the plain version on the CPU)
+    equals pow on a 4096-bit n's n^2 and on an 8192-bit n's n^2
+    (16,384 bits) for 3 rows with short exponents."""
+    for bits in (4096, 8192):
+        gen = tkg.ThresholdKeyGenerator(bits, 5, 3, device=CPU)
+        assert gen.device_verification_keys
+        rng = random.Random(bits)
+        n = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+        n2 = n * n
+        v = rng.randrange(2, n2)
+        shares = [rng.getrandbits(9) for _ in range(3)]
+        assert gen._verification_keys(v, shares, 6, n2) == [
+            pow(v, 6 * s, n2) for s in shares]
     tkg.ThresholdKeyGenerator(8192, 5, 3, device=CPU,
                               device_verification_keys=False)
-    gen = tkg.ThresholdKeyGenerator(4096, 5, 3, device=CPU)
-    rng = random.Random(0x4096)
-    n = rng.getrandbits(4096) | (1 << 4095) | 1
-    n2 = n * n
-    v = rng.randrange(2, n2)
-    shares = [rng.getrandbits(9) for _ in range(3)]
-    assert gen._verification_keys(v, shares, 6, n2) == [
-        pow(v, 6 * s, n2) for s in shares]
 
 
 @pytest.fixture(scope="module")
