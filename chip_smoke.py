@@ -62,9 +62,13 @@ non-zero):
                 against plain, all against pow); B4 at L = 512 (n^2 of a
                 4096-bit key) on 5 rows of one base with per-row 2,050-
                 digit exponents delta * s_i: ThresholdKeyGenerator(4096)'s
-                verification keys equal the kernel called directly (timed)
-                and pow (computed in 5 worker processes while phase 3
-                runs: a plain ladder at L = 512 is far too slow).
+                verification keys (on the kernel mont_kernel.variant
+                picks: B4w) equal the register kernel called directly
+                (timed) and pow (computed in 5 worker processes while
+                phase 3 runs: a plain ladder at L = 512 is far too slow).
+                At L = 256, 512 and 768 phase 3 calls the register kernel
+                itself (mont_kernel.launch at its lane rule), whichever
+                kernel mont_pow_b4 takes there; phase 15 holds B4w to it.
                 B4 at L = 768 (n^3 of phase 13's 4096-bit key, 32 lanes
                 of 12 words): 64 rows against plain over 32 digits and
                 pow; the 2,048 digits of n^2 on the same rows timed, 4
@@ -186,12 +190,18 @@ non-zero):
                 intervals over the window's span), the 5 kernels with
                 most device time, and the count of B1-B4 kernel events,
                 which must equal the launch counters (B1 12, B2 9, B4 1).
- 15. wide    -- kernel B4w (moduli past B4's 768 limbs): against its
-                plain version over 32 digits on 64 rows at L = 1,024 and
-                1,536, 16 rows of per-row moduli at 1,100 limbs and 2
-                rows at 5,824 limbs (the table in global memory), 2 rows
-                of each against pow; against the register kernel B4 at
-                L = 768 on phase 13's 64 rows (both timed); an 8192-bit
+ 15. wide    -- kernel B4w (a block, or a cluster of blocks, a row):
+                through mont_pow_b4 against its plain version over 32
+                digits on 64 rows at L = 1,024 and 1,536, 16 rows of
+                per-row moduli at 1,100 limbs and 2 rows at 5,824 limbs
+                (the table in global memory, staged by cp.async), 2 rows
+                of each against pow, each printing its warps and cluster
+                blocks (mont_kernel.wide_shape); at B4's widths, called
+                directly, against plain and the register kernel B4 over
+                32 digits and then both timed on the full exponents,
+                equal to each other and to pow: L = 256 and 512 on 5
+                rows (the verification keys' shapes of phase 3) and
+                L = 768 on phase 13's 64 rows; an 8192-bit
                 key (keygen(8192, random.Random(8192))) on 16 rows:
                 level-1 Encryptor, Decryptor(crt=True) (B1 at k = 704)
                 and crt=False, level-2 Encryptor and Decryptor (B4w),
@@ -206,13 +216,17 @@ Phases 4-15 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
 whose B1, B2, B3, B4 and B4w launches differ from the exact count its
 entry points make fails (the prime search's B4 count is the number of Fermat
-batches it reports; phase 10: keys B4 1, partial decryption B1 3,
-combine B2 1, the proofs B1 3 and B2 35; phase 11: the serial chunk
-B1 9, B2 9, B4 1, the checks B1 15, B2 14, B4 2, the pipeline B1 18,
-B2 18, B4 2; phase 12: each rank's, above, and none in this process;
-phase 13: B1 2, B4 5; phase 14: B1 12, B2 9, B4 1; phase 15: the
-8192-bit key B1 2, B4w 4, the forced limb branches B4 6, the
-verification keys B4w 1),
+batches it reports).  In phases 10-15 each limb ladder is counted on
+the kernel that mont_kernel.variant names for its width and rows on
+this card (B4w from 256 limbs on up to 2 rows an SM, past 768 limbs
+always, else B4): phase 10: keys 1 (L = 256, 5 rows: B4w), partial
+decryption B1 3, combine B2 1, the proofs B1 3 and B2 35; phase 11:
+the serial chunk B1 9, B2 9, 1 limb (L = 128: B4), the checks B1 15,
+B2 14, 2 limb, the pipeline B1 18, B2 18, 2 limb; phase 12: each
+rank's, above, and none in this process; phase 13: B1 2, 5 limb
+(L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb (B4); phase 15:
+the 8192-bit key B1 2, 4 limb (B4w), the forced limb branches 6 limb
+(512 and 1,536 rows: B4), the verification keys 1 (B4w)),
 and phase 9 fails unless every probe kernel launched.
 Then lines of the threshold and DDLEQ shapes' bounds, one JSON line
 describing the kernels, the card's name and power limit, and as the
@@ -668,6 +682,32 @@ def main() -> None:
         return torch.as_tensor(bhost.ints_to_limbs(vals, L).astype(np.int64),
                                device=dev)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def b4_reg(ctx, x, d, window=4):
+        """The register kernel B4 at its own lane rule, whichever kernel
+        mont_kernel.variant would pick for the shape (counted as B4)."""
+        x_, d_, _ = mk_mod._operands(ctx, x, d, window, "B4")
+        return mk_mod.launch(ctx, x_, d_, window, mk_mod.lanes_per_row(
+            -(-ctx.n_limbs // 2), x_.shape[0], sms))
+
+    def b4_of(L, rows, n=1):
+        """{kernel: n}: the kernel of B4 and B4w that mont_pow_b4 launches
+        for rows of L limbs on this card (mont_kernel.variant), n times."""
+        return {mk_mod.variant(L, rows, sms): n}
+
+    def b4_want(L, rows, n=1):
+        """b4_of as the keywords of timed()"""
+        return {("b4_want" if k == "B4" else "b4w_want"): v
+                for k, v in b4_of(L, rows, n).items()}
+
+    def merged(*ds):
+        out: dict = {}
+        for d_ in ds:
+            for k, v in d_.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
     # B4 at L = 16: shared and per-row digits, per-row moduli
     ctx256 = make_mont_ctx(n256, device=dev)
     xl = limbs(xs, 16)
@@ -1105,7 +1145,9 @@ def main() -> None:
           f"{b4_shape(Lh, 64, dig.shape[-1], ms)}")
     # B4 at L = 256 (mod n^2): the threshold verification keys' ladder, 5
     # rows with per-row 1,025-digit exponents; 32 digits against plain,
-    # all against pow
+    # all against pow.  Here and at L = 512 and 768 the register kernel
+    # itself (b4_reg): mont_pow_b4 takes B4w at these shapes where
+    # mont_kernel.variant says so, and phase 15 holds B4w to both
     ctx_n2 = make_mont_ctx(pk.n2, device=dev)
     L4 = ctx_n2.n_limbs
     xs5 = [rng.randrange(pk.n2) for _ in range(5)]
@@ -1115,15 +1157,15 @@ def main() -> None:
     dig5 = torch.as_tensor(np.stack([exp_digits(e, 4, nd5) for e in es5]),
                            device=dev)
     xl5 = limbs(xs5, L4)
-    got, _, _ = compare("B4", lambda: b4(ctx_n2, xl5, dig5[:, -32:], 4),
+    got, _, _ = compare("B4", lambda: b4_reg(ctx_n2, xl5, dig5[:, -32:]),
                         lambda: b4_plain(ctx_n2, xl5, dig5[:, -32:], 4),
                         f"L={L4} rows=5 per-row, 32 digits")
     check_limbs(got, xs5, [e % (1 << 128) for e in es5], [pk.n2] * 5, 5,
                 "B4 L=256, 32 digits")
-    b4(ctx_n2, xl5, dig5, 4)                                       # warm
+    b4_reg(ctx_n2, xl5, dig5)                                      # warm
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    got = b4(ctx_n2, xl5, dig5, 4)
+    got = b4_reg(ctx_n2, xl5, dig5)
     ev[1].record()
     torch.cuda.synchronize()
     ms = ev[0].elapsed_time(ev[1])
@@ -1151,7 +1193,7 @@ def main() -> None:
     xlw = limbs([vk_v] * 5, Lw)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    got = b4(ctx_w, xlw, digw, 4)
+    got = b4_reg(ctx_w, xlw, digw)
     ev[1].record()
     torch.cuda.synchronize()
     ms = ev[0].elapsed_time(ev[1])
@@ -1178,7 +1220,7 @@ def main() -> None:
     e3 = rng.getrandbits(128) | (1 << 127)
     d3s = torch.as_tensor(exp_digits(e3, 4, 32), device=dev)
     got, b4w_ms, b4w_plain_ms = compare(
-        "B4", lambda: b4(ctx_w3, xl3, d3s, 4),
+        "B4", lambda: b4_reg(ctx_w3, xl3, d3s),
         lambda: b4_plain(ctx_w3, xl3, d3s, 4),
         f"L={L3} rows={L4_ROWS} shared 32 digits")
     check_limbs(got, x4s, [e3] * 4, [sk4.n3] * 4, 4, "B4 L=768, 32 digits")
@@ -1186,7 +1228,7 @@ def main() -> None:
     d3 = torch.as_tensor(exp_digits(sk4.n2, 4, nd3), device=dev)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     ev[0].record()
-    got = b4(ctx_w3, xl3, d3, 4)
+    got = b4_reg(ctx_w3, xl3, d3)
     ev[1].record()
     torch.cuda.synchronize()
     ms = ev[0].elapsed_time(ev[1])
@@ -1207,7 +1249,7 @@ def main() -> None:
           f"{roof3.bound_s() * 1e3:.4f} ms by {roof3.bound_by} "
           f"({100 * roof3.bound_s() * 1e3 / ms:.2f}%); ptxas "
           + ("; ".join(w12) or "(cached build: no log)"))
-    del got, xl, xl3
+    del got, xl
 
     launches = {kname: 0 for kname in wrappers}
     op_s: dict = {}
@@ -1612,9 +1654,10 @@ def main() -> None:
     p_, q_ = SAFE_P1024, SAFE_Q1024
     gen = ThresholdKeyGenerator(KEY_BITS, 5, 3, random.Random(THR_SEED),
                                 device=dev)
-    # the verification keys: one B4 ladder mod n^2 (L = 256) on 5 rows
+    # the verification keys: one ladder mod n^2 (L = 256) on 5 rows, on
+    # the kernel that mont_kernel.variant picks
     tkeys, t_kg = run_path("threshold", lambda: gen.generate_from_primes(
-        p_, (p_ - 1) // 2, q_, (q_ - 1) // 2), {"B4": 1})
+        p_, (p_ - 1) // 2, q_, (q_ - 1) // 2), b4_of(L4, 5))
     tpk = tkeys[0].public()
     if tpk.vi != tuple(pow(tpk.v, tpk.delta * k.share, tpk.n2)
                        for k in tkeys):
@@ -1780,12 +1823,13 @@ def main() -> None:
 
     def dd_serial():
         pr = timed("prove", lambda: zd.prove(skey, dct1, dct2, da, db,
-                                             DD_SECPAR, srng), 7, 8, 0, 1)
+                                             DD_SECPAR, srng), 7, 8, 0,
+                   **b4_want(dk.L, DD_CHUNK))
         return pr, timed("verify", lambda: zd.verify(pk, dct1, dct2, pr),
                          2, 1)
 
-    (proof, ok), _ = run_path("ddleq", dd_serial, {"B1": 9, "B2": 9,
-                                                   "B4": 1})
+    (proof, ok), _ = run_path("ddleq", dd_serial, merged(
+        {"B1": 9, "B2": 9}, b4_of(dk.L, DD_CHUNK)))
     for u in undo:
         u()
     t_prove, t_verify = op_s["prove"], op_s["verify"]
@@ -1799,10 +1843,11 @@ def main() -> None:
         # last proof checked against an unrelated nested ciphertext
         crt = timed("prove 8 (split)", lambda: zd.prove(
             skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
-            random.Random(SEED + 13)), 7, 8, 0, 1)
+            random.Random(SEED + 13)), 7, 8, 0, **b4_want(dk.L, HOST_ROWS))
         full = timed("prove 8 (full width)", lambda: zd.prove(
             skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
-            random.Random(SEED + 13), use_crt=False), 6, 5, 0, 1)
+            random.Random(SEED + 13), use_crt=False), 6, 5, 0,
+            **b4_want(dk.L, HOST_ROWS))
         f = proof.f.clone()
         f[0, 0, 0] ^= 1
         c2 = dct2.c.clone()
@@ -1812,7 +1857,8 @@ def main() -> None:
                       dataclasses.replace(proof, f=f))), 2, 1)
 
     (crt8, full8, bad_ok), _ = run_path(
-        "ddleq", dd_checks, {"B1": 15, "B2": 14, "B4": 2})
+        "ddleq", dd_checks, merged({"B1": 15, "B2": 14},
+                                   b4_of(dk.L, HOST_ROWS, 2)))
     check_line = op_line()
     fields = ("x", "y", "alpha", "e", "f")
     if not all(torch.equal(getattr(crt8, f), getattr(full8, f))
@@ -1845,8 +1891,9 @@ def main() -> None:
         return list(zd.pipeline_prove_verify(skey, jobs, DD_SECPAR,
                                              verify_pk=pk))
 
-    oks, t_dd = run_path("ddleq", dd_pipeline, {
-        "B1": 9 * DD_CHUNKS, "B2": 9 * DD_CHUNKS, "B4": DD_CHUNKS})
+    oks, t_dd = run_path("ddleq", dd_pipeline, merged(
+        {"B1": 9 * DD_CHUNKS, "B2": 9 * DD_CHUNKS},
+        b4_of(dk.L, DD_CHUNK, DD_CHUNKS)))
     if oks != [[True] * DD_CHUNK] * DD_CHUNKS:
         fail("a pipelined DDLEQ proof did not verify")
     dd_rate = DD_CHUNK * DD_CHUNKS / t_dd
@@ -1973,20 +2020,22 @@ def main() -> None:
           f"({time.perf_counter() - t0:.2f} s)")
 
     def l4_ops():
-        # encrypt, decrypt and nested_add: one B4 ladder each (mod n^3);
-        # nested_encrypt and nested_decrypt: one B1 ladder (level 1, mod
-        # n^2 at k = 704) and one B4
-        c2 = timed("encrypt", lambda: enc4.encrypt(m4s, r4s), 0, 0, 0, 1)
-        back = timed("decrypt", lambda: dec4.decrypt(c2), 0, 0, 0, 1)
+        # encrypt, decrypt and nested_add: one limb ladder each (mod n^3,
+        # L = 768: B4 or B4w by mont_kernel.variant); nested_encrypt and
+        # nested_decrypt: one B1 ladder (level 1, mod n^2 at k = 704) and
+        # one limb ladder
+        w3 = b4_want(L3, L4_ROWS)
+        c2 = timed("encrypt", lambda: enc4.encrypt(m4s, r4s), **w3)
+        back = timed("decrypt", lambda: dec4.decrypt(c2), **w3)
         nx = timed("nested_encrypt", lambda: nested_encrypt(
-            sk4, xs4, q4rng, device=dev), 1, 0, 0, 1)
+            sk4, xs4, q4rng, device=dev), 1, **w3)
         na = timed("nested_add", lambda: hom.nested_add(sk4, nx, yct4),
-                   0, 0, 0, 1)
+                   **w3)
         return c2, back, timed("nested_decrypt", lambda: nested_decrypt(
-            sk4, na, device=dev), 1, 0, 0, 1)
+            sk4, na, device=dev), 1, **w3)
 
-    (c4, back4, add4), t_l4 = run_path("level2-4096", l4_ops,
-                                       {"B1": 2, "B4": 5})
+    (c4, back4, add4), t_l4 = run_path(
+        "level2-4096", l4_ops, merged({"B1": 2}, b4_of(L3, L4_ROWS, 5)))
     l4_line = op_line()
     n4_2, n4_3 = sk4.n2, sk4.n3
     if decode_batch(c4.c[:HOST_ROWS]) != [
@@ -2024,9 +2073,11 @@ def main() -> None:
         launches[kname] += tr_counts[kname]
     if tr_out != ms or tr_ok != [True] * DD_CHUNK:
         fail("a traced window's results are wrong")
-    if tr_counts != {"B1": 12, "B2": 9, "B3": 0, "B4": 1, "B4w": 0}:
-        fail(f"the traced windows launched {tr_counts}, expected B1 12, "
-             f"B2 9, B4 1")
+    tr_want = merged({"B1": 12, "B2": 9, "B3": 0, "B4": 0, "B4w": 0},
+                     b4_of(dk.L, DD_CHUNK))
+    if tr_counts != tr_want:
+        fail(f"the traced windows launched {tr_counts}, expected "
+             f"{tr_want}")
     t_parse = time.perf_counter()
     with open(os.path.join(trace_dir, "trace.json")) as fh:
         events = json.load(fh)["traceEvents"]
@@ -2085,6 +2136,17 @@ def main() -> None:
     # 4, the route forced by lowering the RNS engine's width; the
     # verification keys of an 8192-bit modulus
     t15 = time.perf_counter()
+
+    def ev_ms(fn):
+        """fn() once to warm, then once between two CUDA events."""
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
     from paillier_tpu_torch import native
     from paillier_tpu_torch.bigint import rns2 as rns2_mod
     have_gmp = native.available()
@@ -2135,15 +2197,17 @@ def main() -> None:
         d_w = torch.as_tensor(exp_digits(e_w, 4, 32), device=dev)
         nw_ = mk_mod.wide_words(Lw_)
         mode_ = mk_mod.wide_mode(nw_, 4)
-        rb_ = mk_mod.wide_rows_per_block(rows_w, mk_mod.wide_row_bytes(
-            nw_, 4, mode_), torch.cuda.get_device_properties(0)
-            .multi_processor_count)
+        wshape = mk_mod.wide_shape(nw_, rows_w, sms)
         label = (f"L={Lw_} rows={rows_w} "
                  + ("per-row moduli" if per_mod else "shared")
-                 + f" 32 digits, mode {mode_}")
+                 + f" 32 digits, mode {mode_}, {wshape[0]} warps x "
+                 f"{wshape[1]} blocks")
         # the two shapes of 8192-bit keys timed warm, the others on their
-        # first call (their host work, such as the padded context, in it)
+        # first call (their host work, such as the padded context, in it);
+        # through mont_pow_b4, which takes B4w at every one of them
         warm = not per_mod and mode_ == 0
+        if mk_mod.variant(Lw_, rows_w, sms) != "B4w":
+            fail(f"mont_pow_b4 at L={Lw_} would not take B4w")
         got, ms_w, plain_w = compare(
             "B4w", lambda: b4(ctx_w_, x_w, d_w, 4),
             lambda: b4_plain(ctx_w_, x_w, d_w, 4), label, warm=warm)
@@ -2152,43 +2216,65 @@ def main() -> None:
             stats["B4w"]["times"].append({"shape": label, "ms": ms_w,
                                           "plain_ms": plain_w})
         check_limbs(got, xs_w, [e_w] * rows_w, row_mods, 2, f"B4w {label}")
-        wide_shapes.append(dict(L=Lw_, rows=rows_w, ms=ms_w,
-                                plain_ms=plain_w, label=label))
-        phase("wide", f"B4w L={Lw_} ({nw_} words, mode {mode_}, {rb_} rows "
-              f"a block), {rows_w} rows"
+        wide_shapes.append(dict(L=Lw_, rows=rows_w, ms=ms_w, nd=32,
+                                plain_ms=plain_w, label=label,
+                                warps=wshape[0], cluster=wshape[1]))
+        phase("wide", f"B4w L={Lw_} ({nw_} words, mode {mode_}, "
+              f"{wshape[0]} warps a block, {wshape[1]} blocks a row), "
+              f"{rows_w} rows"
               + (", per-row moduli" if per_mod else "")
               + f", 32 digits: bit-identical to plain, 2 rows equal pow; "
               f"kernel {ms_w:.3f} ms ({ms_w * 1e3 / 177:.2f} us a product), "
               f"plain {plain_w:.3f} ms")
     del got, x_w
 
-    def ev_ms(fn):
-        """fn() once to warm, then once between two CUDA events."""
-        fn()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        return out, ev[0].elapsed_time(ev[1])
-
-    # the crossover point: B4w and the register B4 at L = 768 (n^3 of
-    # phase 13's 4096-bit key), 64 rows, 32 digits
-    ctx768 = sk4.device(dev).ctx_for_level(2)
-    x768 = limbs(x4s, ctx768.n_limbs)
-    d768 = torch.as_tensor(exp_digits(wrng.getrandbits(128) | 1 << 127, 4,
-                                      32), device=dev)
-    reg768, ms_reg768 = ev_ms(lambda: b4(ctx768, x768, d768, 4))
-    wid768, ms_wid768 = ev_ms(lambda: b4w(ctx768, x768, d768, 4))
-    if not torch.equal(reg768, wid768):
-        fail("B4w != the register kernel B4 at L = 768")
-    stats["B4w"]["times"].append({
-        "shape": f"L=768 rows={L4_ROWS} shared 32 digits (register B4: "
-                 f"{ms_reg768:.3f} ms)", "ms": ms_wid768, "plain_ms": None})
-    phase("wide", f"L=768, {L4_ROWS} rows, 32 digits: B4w bit-identical to "
-          f"the register kernel B4; B4w {ms_wid768:.3f} ms, B4 "
-          f"{ms_reg768:.3f} ms ({card})")
-    del reg768, wid768, x768
+    # B4's widths where mont_kernel.variant may take B4w: the threshold
+    # verification keys' shapes of phase 3 (5 rows, L = 256 with 1,025
+    # per-row digits; L = 512, a 4096-bit key's, with 2,050) and phase
+    # 13's (64 rows at L = 768, the 2,048 digits of n^2): B4w (called
+    # directly) against plain and the register kernel B4 over 32 digits,
+    # bit-identical, then both on the full exponents, timed, equal to
+    # each other and to pow
+    at_b4 = []
+    for Lb, ctx_b, xb, dfull, want_full, label in (
+            (L4, ctx_n2, xl5, dig5, None, "the threshold verification keys"),
+            (Lw, ctx_w, xlw, digw, vk512, f"a {2 * KEY_BITS}-bit key's "
+                                          f"verification keys"),
+            (L3, ctx_w3, limbs(x4s, L3), d3, l4_pows[:4],
+             f"n^2 of phase 13's {L4_BITS}-bit key")):
+        rows_b = xb.shape[0]
+        d32 = dfull[..., -32:]
+        got, ms32, plain32 = compare(
+            "B4w", lambda: b4w(ctx_b, xb, d32, 4),
+            lambda: b4_plain(ctx_b, xb, d32, 4),
+            f"L={Lb} rows={rows_b} 32 digits")
+        if not torch.equal(got, b4_reg(ctx_b, xb, d32)):
+            fail(f"B4w != the register kernel B4 at L = {Lb}")
+        full_w, ms_w = ev_ms(lambda: b4w(ctx_b, xb, dfull, 4))
+        full_r, ms_r = ev_ms(lambda: b4_reg(ctx_b, xb, dfull))
+        if not torch.equal(full_w, full_r):
+            fail(f"B4w != B4 at L = {Lb} on the full exponent")
+        if want_full is None:
+            check_limbs(full_w, xs5, es5, [pk.n2] * 5, 5, f"B4w L={Lb}")
+        elif bhost.limbs_to_ints(full_w[:len(want_full)].cpu().numpy()) \
+                != list(want_full):
+            fail(f"B4w at L = {Lb} != pow")
+        nd_b = dfull.shape[-1]
+        ws_b = mk_mod.wide_shape(mk_mod.wide_words(Lb), rows_b, sms)
+        pick = mk_mod.variant(Lb, rows_b, sms)
+        stats["B4w"]["times"].append({
+            "shape": f"L={Lb} rows={rows_b} {nd_b} digits, {ws_b[0]} "
+                     f"warps x {ws_b[1]} blocks (register B4: {ms_r:.3f} "
+                     f"ms; mont_pow_b4 takes {pick})", "ms": ms_w,
+            "plain_ms": None})
+        at_b4.append(dict(L=Lb, rows=rows_b, nd=nd_b, ms=ms_w, b4_ms=ms_r,
+                          label=f"L={Lb} rows={rows_b} {nd_b} digits"))
+        phase("wide", f"L={Lb}, {rows_b} rows ({label}): B4w ({ws_b[0]} "
+              f"warps x {ws_b[1]} blocks) bit-identical to plain and to B4 "
+              f"over 32 digits (B4w {ms32:.3f} ms, plain {plain32:.3f} ms); "
+              f"{nd_b} digits: B4w {ms_w:.3f} ms, B4 {ms_r:.3f} ms, equal, "
+              f"and to pow; mont_pow_b4 takes {pick} ({card})")
+    del got, full_w, full_r
 
     # an 8192-bit key: both levels past the RNS engine (n^2: 1,024 limbs,
     # n^3: 1,536, B4w), its CRT halves p^2 / q^2 on B1 at k = 704
@@ -2226,19 +2312,22 @@ def main() -> None:
     t_set8 = time.perf_counter() - t0
 
     def w8_ops():
-        # levels 1 and 2: one B4w ladder for each encrypt and plain
-        # decrypt; CRT decryption two B1 ladders at k = 704
+        # levels 1 and 2: one limb ladder (B4w at these widths) for each
+        # encrypt and plain decrypt; CRT decryption two B1 ladders at
+        # k = 704
+        w1, w2 = b4_want(L8 * 2, W8_ROWS), b4_want(L8 * 3, W8_ROWS)
         c1 = timed("encrypt L1", lambda: enc8[1].encrypt(m8[1], rr8[1]),
-                   b4w_want=1)
+                   **w1)
         b1c = timed("CRT decrypt L1", lambda: crt8.decrypt(c1), 2)
-        b1p = timed("decrypt L1", lambda: dec8[1].decrypt(c1), b4w_want=1)
+        b1p = timed("decrypt L1", lambda: dec8[1].decrypt(c1), **w1)
         c2 = timed("encrypt L2", lambda: enc8[2].encrypt(m8[2], rr8[2]),
-                   b4w_want=1)
-        b2p = timed("decrypt L2", lambda: dec8[2].decrypt(c2), b4w_want=1)
+                   **w2)
+        b2p = timed("decrypt L2", lambda: dec8[2].decrypt(c2), **w2)
         return (c1, c2), (b1c, b1p, b2p)
 
     ((c81, c82), (b81c, b81p, b82p)), t_w8 = run_path(
-        "wide", w8_ops, {"B1": 2, "B4w": 4})
+        "wide", w8_ops, merged({"B1": 2}, b4_of(L8 * 2, W8_ROWS, 2),
+                               b4_of(L8 * 3, W8_ROWS, 2)))
     w8_line = op_line()
     if not b81c == b81p == m8[1] or b82p != m8[2]:
         fail(f"the {W8_BITS}-bit key did not round-trip")
@@ -2272,17 +2361,21 @@ def main() -> None:
         dec_l = Decryptor(skey, crt=True, device=dev)
 
         def limb_ops():
-            # one B4 ladder a server (L = 256); combine: one B4 ladder
-            # over the stacked rows, limb trees; the limb CRT: two B4
-            # ladders (p^2, q^2 at L = 128)
+            # one limb ladder a server (L = 256); combine: one over the
+            # 3 x 512 stacked rows, limb trees; the limb CRT: two (p^2,
+            # q^2 at L = 128); B4 or B4w by mont_kernel.variant
             sh = timed("partial_decrypt_all", lambda: partial_decrypt_all(
-                tkeys[:3], sub), b4_want=3)
-            out_ = timed("combine", lambda: combine(tpk, sh), b4_want=1)
+                tkeys[:3], sub), **b4_want(L4, W_THR_ROWS, 3))
+            out_ = timed("combine", lambda: combine(tpk, sh),
+                         **b4_want(L4, 3 * W_THR_ROWS))
             crt_ = timed("limb CRT decrypt", lambda: dec_l.decrypt_array(
-                Ciphertext(c=ct.c[:W_THR_ROWS])), b4_want=2)
+                Ciphertext(c=ct.c[:W_THR_ROWS])),
+                **b4_want(dk.L, W_THR_ROWS, 2))
             return sh, out_, crt_
 
-        (lsh, lout, lcrt), _ = run_path("wide", limb_ops, {"B4": 6})
+        (lsh, lout, lcrt), _ = run_path("wide", limb_ops, merged(
+            b4_of(L4, W_THR_ROWS, 3), b4_of(L4, 3 * W_THR_ROWS),
+            b4_of(dk.L, W_THR_ROWS, 2)))
     finally:
         rns2_mod.MAX_MODULUS_BITS = saved_bits
     limb_line = op_line()
@@ -2301,7 +2394,7 @@ def main() -> None:
     # one base, per-row 16,391-bit exponents, mod n^2 at 1,024 limbs
     vk8, _ = run_path("wide", lambda: ThresholdKeyGenerator(
         W8_BITS, 5, 3, device=dev)._verification_keys(
-            vk8_v, vk8_shares, 120, vk_n2), {"B4w": 1})
+            vk8_v, vk8_shares, 120, vk_n2), b4_of(W8_BITS // 8, 5))
     if vk8 != vk8_pows():
         fail(f"{W8_BITS}-bit verification keys (B4w) != pow")
     w_pool.shutdown()
@@ -2397,26 +2490,37 @@ def main() -> None:
                       f"({100 * b[0] / ms:.2f}%)"
                       for k, (ms, b) in dd_shapes.items()))
 
-    # B4w's shapes (phase 15): 177 products a row (the table's 16, the
-    # 32 digits' 160, the exit), 2 nw^2 + nw multiply-adds each at the
-    # modulus' own nw = L / 2 (padding is not work)
+    # B4w's shapes (phase 15): 16 + 5 nd + 1 products a row (the table's
+    # 16, 5 a digit, the exit; 177 at 32 digits), 2 nw^2 + nw
+    # multiply-adds each at the modulus' own nw = L / 2 (padding is not
+    # work: the kernel's own 2.5 nw^2 a product at the padded nw is not
+    # the function's)
     def b4w_bound(sh):
         nw_ = -(-sh["L"] // 2)
-        return bound(177 * sh["rows"] * (2 * nw_ * nw_ + nw_) / MAC32,
-                     sh["rows"] * sh["L"] * 8 * 2 + 32 * 4 + 3 * sh["L"] * 8)
+        return bound((16 + 5 * sh["nd"] + 1) * sh["rows"]
+                     * (2 * nw_ * nw_ + nw_) / MAC32,
+                     sh["rows"] * sh["L"] * 8 * 2 + sh["nd"] * 4
+                     + 3 * sh["L"] * 8)
 
     phase("bounds", "B4w shapes (ms, share of bound): " + ", ".join(
         f"{sh['label']} {sh['ms']:.3f} against {b4w_bound(sh)[0]:.4f} by "
         f"{b4w_bound(sh)[1]} ({100 * b4w_bound(sh)[0] / sh['ms']:.2f}%)"
         for sh in wide_shapes))
+    phase("bounds", "B4's widths, B4w / B4 (ms, share of bound): "
+          + ", ".join(
+              f"{sh['label']} {sh['ms']:.3f} / {sh['b4_ms']:.3f} against "
+              f"{b4w_bound(sh)[0]:.4f} by {b4w_bound(sh)[1]} "
+              f"({100 * b4w_bound(sh)[0] / sh['ms']:.2f}% / "
+              f"{100 * b4w_bound(sh)[0] / sh['b4_ms']:.2f}%)"
+              for sh in at_b4))
     b4w_main = wide_shapes[1]
 
-    def entry(kname, name, source, replaces, ms, plain_ms, bnd):
+    def entry(kname, name, source, replaces, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[kname],
                 "max_abs_err": stats[kname]["err"], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": None, "times": stats[kname]["times"]}
+                "library_ms": None, **extra, "times": stats[kname]["times"]}
 
     def probe_entry(key, name, source, replaces):
         rec = heads[key][0]
@@ -2448,7 +2552,9 @@ def main() -> None:
         entry("B4w", "limb_modexp_wide",
               "paillier_tpu_torch/csrc/limb_modexp_wide.cu",
               "paillier_tpu/bigint/pallas_kernels.py:155", b4w_main["ms"],
-              b4w_main["plain_ms"], b4w_bound(b4w_main)),
+              b4w_main["plain_ms"], b4w_bound(b4w_main),
+              shape=b4w_main["label"], warps=b4w_main["warps"],
+              cluster=b4w_main["cluster"]),
         probe_entry("P1", "probe_dotvar", csrc + "probe_dotvar.cu",
                     pr_dotvar.SCRIPT),
         probe_entry("P2", "probe_dotchain", csrc + "probe_dotchain.cu",

@@ -5,21 +5,24 @@ Replaces ``paillier_tpu/bigint/pallas_kernels.py:_modexp_kernel``
 (wrapper ``mont_pow_pallas``).  Both kernels are hand-written CUDA C++:
 B4 in ``paillier_tpu_torch/csrc/limb_modexp.cu`` (a group of lanes per
 row, the operands in registers), B4w in
-``paillier_tpu_torch/csrc/limb_modexp_wide.cu`` (a warp per row, the
-operands in shared memory; their header notes give the layouts and what
+``paillier_tpu_torch/csrc/limb_modexp_wide.cu`` (a thread block, or a
+cluster of blocks, per row, running the three-product Montgomery
+multiply of the TPU kernel; their header notes give the layouts and what
 bounds them).  :mod:`cuda_build` builds each with ``nvcc`` for ``sm_90a``
 at first use and binds its plain C entry point with ``ctypes``; they
 launch on PyTorch's current stream.  The launch shapes are chosen here:
 B4's lanes per row and rows per block by :func:`lanes_per_row` and
-:func:`rows_per_block`, B4w's mode and rows per block by
-:func:`wide_mode` and :func:`wide_rows_per_block`.
+:func:`rows_per_block`, B4w's mode by :func:`wide_mode` and its warps,
+cluster size by :func:`wide_shape`.
 
 :func:`mont_pow_b4` takes a CPU tensor to the plain version,
 :func:`mont_pow_digits_plain` (re-exported here from :mod:`montgomery`),
-and a CUDA tensor to B4 up to :data:`REGISTER_MAX_LIMBS` limbs and to B4w
-(:func:`mont_pow_b4w`) past them: the variant is decided by the
-modulus' width before the launch.  There is no fallback: a CUDA tensor
-that a kernel does not take, a failed build or a failed launch raises.
+and a CUDA tensor to B4 or B4w (:func:`mont_pow_b4w`) as :func:`variant`
+decides before the launch, by the modulus' width, the rows and the SMs:
+B4w past :data:`REGISTER_MAX_LIMBS` limbs always, and below them where a
+few wide rows would leave B4 latency bound.  There is no fallback: a CUDA
+tensor that a kernel does not take, a failed build or a failed launch
+raises.
 """
 
 from __future__ import annotations
@@ -45,9 +48,16 @@ SMEM_MAX = 232448                # shared memory a block may use (227 KB)
 WORDS_PER_LANE = (1, 2, 3, 4, 8, 12)  # the cases of limb_modexp_launch
 BLOCK_THREADS = 128              # threads of a block (rows x lanes)
 WARPS_PER_SM = 6                 # warps a batch should give each SM
-WIDE_LANES = 32                  # B4w: a warp a row
-WIDE_OPERANDS = 4                # B4w: n, t, acc, x, nw words each
-WIDE_MAX_ROWS = 8                # B4w: rows (warps) of a block
+# B4w (a block, or a cluster of blocks, a row); the launch rule's constants
+# are fitted to scripts/ab_sliding.py --kernel b4w (PERF.md §6)
+WIDE_PAD = 32                    # zero words around a column array
+WIDE_CLUSTERS = (1, 2, 4, 8)     # blocks of a row's cluster
+WIDE_MIN_WARPS = 8               # warps of a block the rule gives,
+WIDE_MAX_WARPS = 32              # at least and at most (1024 threads)
+WIDE_CLUSTER_FROM = 768          # words of a row from which clusters pay,
+WIDE_MIN_WORDS_A_BLOCK = 192     # and the fewest words a block then keeps
+WIDE_FROM_LIMBS = 256            # B4w below 768 limbs from this width on,
+WIDE_ROWS_PER_SM = 2             # up to this many rows an SM
 
 _lib = None
 _wide_lib = None
@@ -79,7 +89,8 @@ def load_wide():
     lib, build_log_wide = cuda_build.build(WIDE_SOURCE)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.limb_modexp_wide_launch.argtypes = [vp, vp, ci, ci, vp, vp, vp, ci,
-                                            vp, ci, ci, ci, ci, ci, vp, vp]
+                                            vp, ci, ci, ci, ci, ci, ci, vp,
+                                            vp]
     lib.limb_modexp_wide_launch.restype = ci
     lib.limb_modexp_wide_row_bytes.argtypes = [ci, ci, ci]
     lib.limb_modexp_wide_row_bytes.restype = ctypes.c_longlong
@@ -153,52 +164,123 @@ def _kernel_ctx(ctx: MontCtx, n_words: int | None = None) -> tuple:
             r2.to(torch.int32).contiguous(), L)
 
 
-def variant(n_limbs: int) -> str:
+def variant(n_limbs: int, rows: int | None = None, sms: int = 132) -> str:
     """The kernel that a CUDA call of :func:`mont_pow_b4` launches for a
-    modulus of ``n_limbs`` limbs: "B4" up to :data:`REGISTER_MAX_LIMBS`,
-    "B4w" past it."""
-    return "B4" if n_limbs <= REGISTER_MAX_LIMBS else "B4w"
+    modulus of ``n_limbs`` limbs on ``rows`` rows (None: a batch that
+    fills the card) of a device with ``sms`` SMs: "B4w" past
+    :data:`REGISTER_MAX_LIMBS` limbs, and below them from
+    :data:`WIDE_FROM_LIMBS` limbs on where the batch has at most
+    :data:`WIDE_ROWS_PER_SM` rows an SM (B4's lane groups would leave the
+    card latency bound); else "B4".  Fitted to ``scripts/ab_sliding.py
+    --kernel b4w`` (PERF.md §6)."""
+    if n_limbs > REGISTER_MAX_LIMBS:
+        return "B4w"
+    if (rows is not None and n_limbs >= WIDE_FROM_LIMBS
+            and rows <= WIDE_ROWS_PER_SM * sms):
+        return "B4w"
+    return "B4"
 
 
 def wide_words(L: int) -> int:
     """Words of a row of L limbs as B4w holds it: L / 2 rounded up to a
-    multiple of :data:`WIDE_LANES` (the extra words are zero, and R grows
-    with them)."""
-    return WIDE_LANES * -(-L // (2 * WIDE_LANES))
+    multiple of 32 (a warp; the extra words are zero, and R grows with
+    them)."""
+    return 32 * -(-L // 64)
+
+
+def _ops_words(nw: int) -> int:
+    # n, n', acc, x, y, m; t (2 nw + 32); three column arrays with pads
+    return 14 * nw + 32 + 6 * WIDE_PAD
+
+
+def _seg_words(nw: int) -> int:
+    return 3 * (nw // 16 + 8)
 
 
 def wide_row_bytes(nw: int, window: int, mode: int) -> int:
-    """Shared-memory bytes of one B4w row of ``nw`` words (the C side's
-    ``limb_modexp_wide_row_bytes``): the four operands and the
-    2^window-entry table (mode 0), the four operands (mode 1), none
-    (mode 2)."""
-    words = (WIDE_OPERANDS + (1 << window) if mode == 0
-             else WIDE_OPERANDS if mode == 1 else 0)
-    return 4 * words * nw
+    """Shared-memory bytes of one B4w row's block (the C side's
+    ``limb_modexp_wide_row_bytes``): the operands, the product and the
+    column words, the 2^window-entry table (mode 0) and the segment
+    flags of the carry-lookahead; mode 1 without the table, mode 2 the
+    flags alone."""
+    words = _seg_words(nw)
+    if mode < 2:
+        words += _ops_words(nw)
+    if mode == 0:
+        words += (1 << window) * nw
+    return 4 * words
+
+
+def wide_scratch_words(nw: int, window: int, mode: int) -> int:
+    """Words of one B4w row's global scratch: the table (mode 1),
+    everything but the segment flags (mode 2), none (mode 0)."""
+    tab = (1 << window) * nw
+    return 0 if mode == 0 else tab if mode == 1 else _ops_words(nw) + tab
 
 
 def wide_mode(nw: int, window: int) -> int:
     """Where B4w keeps a row of ``nw`` words: all in shared memory (0)
-    where one row's operands and table fit in :data:`SMEM_MAX`, else the
-    table in a global scratch tensor (1; at window 4 past 2,905 words, a
-    92,960-bit modulus), else the operands too (2; past 14,528 words)."""
+    where one row's operands, columns and table fit in :data:`SMEM_MAX`,
+    else the table in a global scratch tensor (1; at window 4 past 1,888
+    words, a 60,416-bit modulus), else the operands and columns too (2;
+    past 4,064 words)."""
     for mode in (0, 1):
         if wide_row_bytes(nw, window, mode) <= SMEM_MAX:
             return mode
     return 2
 
 
-def wide_rows_per_block(rows: int, row_bytes: int, sms: int) -> int:
-    """Rows (warps) of a B4w block for a batch of ``rows`` on ``sms`` SMs:
-    enough blocks for every SM first (one row a block up to ``sms``
-    rows), then as many rows as shared memory holds, at most
-    :data:`WIDE_MAX_ROWS`.  A block's rows share nothing, so the rule
-    only spreads a small batch over the SMs; a large one is held by
-    shared memory either way."""
-    rb = min(WIDE_MAX_ROWS, max(1, rows // sms))
-    if row_bytes:
-        rb = min(rb, SMEM_MAX // row_bytes)
-    return max(rb, 1)
+def wide_shape(nw: int, rows: int, sms: int, window: int = 4) -> tuple:
+    """(warps a block, blocks a cluster) of a B4w launch of ``rows`` rows
+    of ``nw`` words on ``sms`` SMs.  The cluster: the most of
+    :data:`WIDE_CLUSTERS` whose blocks the card holds at once (rows x
+    cluster <= sms), from :data:`WIDE_CLUSTER_FROM` words on and with at
+    least :data:`WIDE_MIN_WORDS_A_BLOCK` words a block; 1 in mode 2.
+    The warps: one column pair a thread (32 w c >= nw), within
+    :data:`WIDE_MIN_WARPS` and :data:`WIDE_MAX_WARPS`.  Fitted to
+    ``scripts/ab_sliding.py --kernel b4w`` (PERF.md §6)."""
+    cluster = 1
+    if wide_mode(nw, window) < 2 and nw >= WIDE_CLUSTER_FROM:
+        for c in reversed(WIDE_CLUSTERS):
+            if rows * c <= sms and nw >= c * WIDE_MIN_WORDS_A_BLOCK:
+                cluster = c
+                break
+    warps = max(WIDE_MIN_WARPS, min(WIDE_MAX_WARPS,
+                                    -(-nw // (32 * cluster))))
+    return warps, cluster
+
+
+def hensel_nprime(n: int, x: int, bits: int, target: int) -> int:
+    """-n^-1 mod 2^target from x = -n^-1 mod 2^bits, for odd n, by
+    Hensel lifting: x (2 + n x) holds -n^-1 to twice the bits that x
+    holds."""
+    while bits < target:
+        bits = min(2 * bits, target)
+        x = x * (2 + n * x) % (1 << bits)
+    return x
+
+
+def _wide_ctx(ctx: MontCtx, nw: int) -> tuple:
+    """(n, n', R^2 mod n) as B4w takes them: int32 16-bit limbs [2 nw],
+    or [B, 2 nw] per row, for R = 2^(32 nw).  Where 2 nw > L, n is
+    padded with zero limbs, R^2 mod n is rebuilt on the host and n' is
+    lifted from the context's -n^-1 mod 2^(16 L) by
+    :func:`hensel_nprime` (one or two products a row, not an inverse)."""
+    L, Lk = ctx.n_limbs, 2 * nw
+    fields = (ctx.n, ctx.nprime, ctx.r2)
+    if Lk != L:
+        mods = limbs_to_ints(ctx.n.reshape(-1, L).cpu().numpy())
+        nps = limbs_to_ints(ctx.nprime.reshape(-1, L).cpu().numpy())
+        rr = 1 << (64 * nw)
+        vals = (mods,
+                [hensel_nprime(m, x, 16 * L, 32 * nw)
+                 for m, x in zip(mods, nps)],
+                [rr % m for m in mods])
+        fields = [torch.as_tensor(ints_to_limbs(v, Lk).astype(np.int64),
+                                  device=ctx.device).reshape(
+                                      ctx.n.shape[:-1] + (Lk,))
+                  for v in vals]
+    return tuple(f.to(torch.int32).contiguous() for f in fields)
 
 
 def _operands(ctx: MontCtx, base: torch.Tensor, digits, window: int,
@@ -238,33 +320,34 @@ def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
     row, MSB-first base-2^window; ctx fields [L] shared or [B, L] per row.
     Returns the canonical base^e mod n as int64 limbs [B, L], equal to
     :func:`mont_pow_digits_plain`.  A CPU tensor runs the plain version.
-    On a CUDA tensor a modulus of at most :data:`REGISTER_MAX_LIMBS`
-    limbs launches B4, with :func:`lanes_per_row` lanes a row (by the
-    batch and the device's SMs), in blocks of :data:`BLOCK_THREADS`
-    threads (fewer rows where shared memory does not hold them), and adds
-    one to ``mont_pow_b4.launches``; a wider one launches B4w
-    (:func:`mont_pow_b4w`, which counts its own launches).
+    On a CUDA tensor :func:`variant` picks the kernel by the width, the
+    rows and the device's SMs: B4 launches with :func:`lanes_per_row`
+    lanes a row, in blocks of :data:`BLOCK_THREADS` threads (fewer rows
+    where shared memory does not hold them), and adds one to
+    ``mont_pow_b4.launches``; B4w launches as :func:`mont_pow_b4w` does
+    and adds one to ``mont_pow_b4w.launches``.
     """
     if base.device.type == "cpu":
         return mont_pow_digits_plain(ctx, base, digits, window)
-    if variant(ctx.n_limbs) == "B4w":
-        return mont_pow_b4w(ctx, base, digits, window)
     base, digits, squeeze = _operands(ctx, base, digits, window, "B4")
     sms = torch.cuda.get_device_properties(base.device).multi_processor_count
-    out = launch(ctx, base, digits, window,
-                 lanes_per_row(-(-ctx.n_limbs // 2), base.shape[0], sms))
+    if variant(ctx.n_limbs, base.shape[0], sms) == "B4w":
+        out = launch_wide(ctx, base, digits, window)
+    else:
+        out = launch(ctx, base, digits, window,
+                     lanes_per_row(-(-ctx.n_limbs // 2), base.shape[0], sms))
     return out[0] if squeeze else out
 
 
 def mont_pow_b4w(ctx: MontCtx, base: torch.Tensor, digits,
                  window: int = 4) -> torch.Tensor:
-    """:func:`mont_pow_b4`'s contract on kernel B4w, at any width: a warp
-    a row, the row padded to :func:`wide_words`, its operands where
-    :func:`wide_mode` puts them, :func:`wide_rows_per_block` rows a
-    block.  A CPU tensor runs the plain version; a CUDA tensor launches
-    B4w and adds one to ``mont_pow_b4w.launches``.  :func:`mont_pow_b4`
-    calls it past :data:`REGISTER_MAX_LIMBS` limbs; the tests also call
-    it at B4's widths."""
+    """:func:`mont_pow_b4`'s contract on kernel B4w, at any width: a block
+    (or a cluster of blocks) a row, the row padded to :func:`wide_words`,
+    its operands where :func:`wide_mode` puts them, the launch shape of
+    :func:`wide_shape`.  A CPU tensor runs the plain version; a CUDA
+    tensor launches B4w and adds one to ``mont_pow_b4w.launches``.
+    :func:`mont_pow_b4` calls it where :func:`variant` says "B4w"; the
+    tests also call it at B4's widths."""
     if base.device.type == "cpu":
         return mont_pow_digits_plain(ctx, base, digits, window)
     base, digits, squeeze = _operands(ctx, base, digits, window, "B4w")
@@ -308,31 +391,36 @@ mont_pow_b4.launches = 0
 
 
 def launch_wide(ctx: MontCtx, base: torch.Tensor, digits: torch.Tensor,
-                window: int) -> torch.Tensor:
+                window: int, shape: tuple | None = None) -> torch.Tensor:
     """Kernel B4w on checked CUDA operands (base limbs [B, L], int32
-    digits); adds one to ``mont_pow_b4w.launches``."""
+    digits) with ``shape`` = (warps a block, blocks a cluster),
+    :func:`wide_shape`'s by default; adds one to
+    ``mont_pow_b4w.launches``.  The tests and the sweep take other
+    shapes; a shape the kernel does not take raises."""
     B, L = base.shape
     nw = wide_words(L)
     mode = wide_mode(nw, window)
-    n, n0, r2, Lk = _kernel_ctx(ctx, nw)
-    x = torch.nn.functional.pad(base.to(torch.int32), (0, Lk - L)
+    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
+    warps, cluster = shape or wide_shape(nw, B, sms, window)
+    n, nprime, r2 = _wide_ctx(ctx, nw)
+    x = torch.nn.functional.pad(base.to(torch.int32), (0, 2 * nw - L)
                                 ).contiguous()
     lib = load_wide()
-    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
-    rb = wide_rows_per_block(B, wide_row_bytes(nw, window, mode), sms)
-    out = torch.empty((B, Lk), dtype=torch.int32, device=base.device)
-    per_row = (1 << window) + (WIDE_OPERANDS if mode == 2 else 0)
-    scratch = torch.empty((B, per_row, nw) if mode else (0,),
-                          dtype=torch.int32, device=base.device)
+    out = torch.empty((B, 2 * nw), dtype=torch.int32, device=base.device)
+    scratch = torch.empty((B, wide_scratch_words(nw, window, mode)) if mode
+                          else (0,), dtype=torch.int32, device=base.device)
     stream = torch.cuda.current_stream(base.device).cuda_stream
     with torch.cuda.device(base.device):
         err = lib.limb_modexp_wide_launch(
             x.data_ptr(), digits.data_ptr(), digits.shape[-1],
-            int(digits.dim() == 2), n.data_ptr(), n0.data_ptr(),
+            int(digits.dim() == 2), n.data_ptr(), nprime.data_ptr(),
             r2.data_ptr(), int(ctx.n.dim() == 2), out.data_ptr(), B, nw,
-            window, rb, mode, scratch.data_ptr() if mode else None, stream)
+            window, warps, cluster, mode,
+            scratch.data_ptr() if mode else None, stream)
     if err:
-        raise RuntimeError(f"kernel B4w launch failed: cudaError {err}")
+        raise RuntimeError(f"kernel B4w launch failed: cudaError {err} "
+                           f"({warps} warps, cluster {cluster}, mode "
+                           f"{mode})")
     cuda_build.count_launch(mont_pow_b4w)
     return out[:, :L].to(torch.int64)
 

@@ -1,13 +1,15 @@
 // Kernel B4w: the limb-domain Montgomery fixed-window ladder of kernel B4
-// (csrc/limb_modexp.cu) for moduli past B4's 768 limbs, with a row's
-// operands in shared memory instead of registers.
+// (csrc/limb_modexp.cu) with a thread block, or a cluster of blocks, per
+// row, running the TPU kernel's three-product Montgomery multiply.
 //
-// Replaces, with B4, paillier_tpu/bigint/pallas_kernels.py:_modexp_kernel
-// (the Pallas TPU kernel behind mont_pow_pallas), at the widths B4 does
-// not take.  The contract is B4's: for every row b of a batch, the
-// canonical base_b^e_b mod n_b, with e given as MSB-first base-2^w
-// digits, one string for the batch ([D]) or one per row ([B, D]), and n
-// one modulus for the batch or one per row.  The ladder is
+// Replaces paillier_tpu/bigint/pallas_kernels.py:155 (_modexp_kernel, the
+// Pallas TPU kernel behind mont_pow_pallas) wherever the launch rule
+// (mont_kernel.variant) prefers it to B4: past B4's 768 limbs always, and
+// below them where a few wide rows would leave B4 latency bound.  The
+// contract is B4's: for every row b of a batch, the canonical
+// base_b^e_b mod n_b, with e given as MSB-first base-2^w digits, one
+// string for the batch ([D]) or one per row ([B, D]), and n one modulus
+// for the batch or one per row.  The ladder is
 // montgomery.mont_pow_digits_plain's, multiply for multiply:
 //   bm = base * R^2 * R^-1; table = [1_M, bm, bm^2, .., bm^(2^w - 1)];
 //   acc = 1_M; per digit d: w squarings, then table[d] * acc, d = 0
@@ -15,361 +17,552 @@
 // Every product is a canonical Montgomery product, so the output equals
 // the plain version's (and Python's pow) whatever R is: R = 2^(32 nw)
 // with nw a multiple of 32 words, the wrapper padding n with zero words
-// and rebuilding R^2 mod n for that R.
+// and giving R^2 mod n and the full n' = -n^-1 mod R for that R.
 //
-// Why a second kernel: B4 holds a lane's W words of five operands in
-// registers, W a template case up to 12 (nw = 384 words, 128 registers).
-// n^3 of an 8192-bit key is 768 words, W = 24 at 32 lanes, past the 255
-// registers a thread has.  Here one warp serves a row, W = nw / 32 is a
-// run-time count, and the operands n, t (the product being formed), acc
-// and x (a scratch operand), each nw words, lie in shared memory with the
-// 2^w-entry power table.
+// The Montgomery product is pallas_kernels.py:_mont_mul's, three products
+// free of any word-by-word dependency:
+//   A: t = a b                    (2 nw + 1 words)
+//   B: m = (t mod R) n' mod R     (nw words)
+//   C: u = (t + m n) / R, then one conditional subtract of n.
+// Each product is a product-scanning pass.  Thread j of the row's G
+// threads (32 w a block, c blocks in a cluster) owns the column pairs
+// (k, k + nw) for k = j + G s: column k sums a_i b_(k-i) over i <= k and
+// column k + nw sums a_i b_(k-i+nw) over i > k, so every thread sums
+// exactly nw terms a pair (the columns of a product, paired so that the
+// short low columns go with the short high ones).  A step i reads a_i,
+// one word for the whole warp (a broadcast, four steps in one 16-byte
+// load), and b_(k-i) at 32 consecutive words, one a bank: no bank
+// conflict; a chunk of 32 steps loads its a and b words first and then
+// runs its 32 terms.  A thread keeps each column in three words in registers
+// (mad.lo.cc / madc.hi.cc / addc, which ptxas makes one IMAD.WIDE.U32
+// with a carry-out and half an IADD3.X a term) and takes its column
+// pairs one at a time.  The lanes of a warp move from column k to k + nw at
+// steps k0 .. k0 + 31 (k0 = k - lane, a multiple of 32): only that chunk
+// of 32 steps runs a per-lane switch.  B needs the columns below nw
+// alone: a warp stops after its switch (no high sums are formed), so B
+// costs about half of A or C.
 //
-// Layout: lane l owns the logical words l W .. l W + W - 1 of every
-// operand, as in B4, so the product's word steps, shuffles and carry
-// lookahead are B4's.  Its word w is stored at [w * 32 + l] of the
-// operand (interleaved): when the warp touches "its own word w", the 32
-// lanes read 32 consecutive words, one a bank, with no bank conflict
-// (a contiguous block a lane, [l W + w], would put lanes l and
-// l + 32 / gcd(W, 32) on one bank: a gcd(W, 32)-way conflict, 8-way at
-// W = 16 and 24).  A lane only ever
-// reads and writes its own words (b_i goes to the other lanes by
-// __shfl_sync, never through shared memory), so no barrier is needed:
-// each lane's shared words are private to it.  Table entry v of a row
-// lies at [v * nw] in the same interleaved layout.
+// After each product the column words go to shared memory (each block
+// of a cluster writes its columns into every block's copy through
+// distributed shared memory) and the row normalises them:
+//   x_p = c0_p + c1_(p-1) + c2_(p-2)   (< 3 2^32),
+//   y_p = lo(x_p) + hi(x_(p-1))        (< 2^32 + 3: a word and a 0/1 carry),
+// then the 0/1 carries by a carry-lookahead: generate and propagate bits
+// of each 32-position segment by __ballot_sync, the segments' carries by
+// one warp of each block over the segments' flags (which every block
+// writes into every block's copy), and each word's carry-in from its
+// segment's.  The conditional subtract takes its borrows the same way.
+// Each block ends holding the whole normalised result, which the next
+// product reads from its own copy.  A Montgomery product thus costs 11
+// row barriers (cluster barriers where c > 1, block barriers where
+// c = 1) and 4 block barriers, instead of nw dependent word steps.
 //
-// Where a row's operands and table pass what a block's shared memory
-// holds (232,448 B: 4 + 2^w operands of nw words; at window 4 past 2,905
-// words, a 92,960-bit modulus), the table moves to a global scratch
-// tensor [B, 2^w, nw] the wrapper allocates (mode 1); past 14,528 words
-// (the four operands alone) the operands move there too (mode 2).  The
-// wrapper picks the mode by width (mont_kernel.wide_mode) and the rows
-// of a block (warps) by the batch and shared memory
-// (mont_kernel.wide_rows_per_block), so no width is refused.
+// Where a row's operands, columns and table pass what a block's shared
+// memory holds (232,448 B: at window 4 past 1,888 words, a 60,416-bit
+// modulus), the table moves to a global scratch tensor [B, 2^w, nw]
+// (mode 1): a digit's entry is brought into a shared staging operand by
+// cp.async, issued before the digit's squarings so that its latency hides
+// behind them.  Past 4,064 words the operands and columns move there too
+// (mode 2, one block a row).  The wrapper picks the mode by width, and
+// the warps and cluster size by the width, the batch and the SMs
+// (mont_kernel.wide_shape), so no width is refused.
 //
-// The Montgomery product is CIOS by words of b, spread over the warp, as
-// in B4.  For each word b_i:
-//   b_i is broadcast from its owner lane (__shfl_sync);
-//   m_i = (t_0 + a_0 b_i) (-n^-1) mod 2^32 is formed from the warp's
-//     word 0, which is exact (no carry is ever pending there), and
-//     broadcast;
-//   every lane adds a_j b_i + m_i n_j into its words (two 32-bit carry
-//     chains, each word read from shared memory and the shifted word
-//     written back) and keeps its carry-out instead of passing it along;
-//     the one-word shift brings word 0 of the lane above in on top, plus
-//     the lane's own carry-out, and the carry of that sum (at most 2) is
-//     the lane above's pending carry, which that lane forms itself from
-//     the carry-out it receives (one shuffle each way).
-// After the nw steps the pending carries are resolved once (each lane
-// its own, then the carries between lanes by a carry-lookahead over the
-// warp: generate and propagate bits by __ballot_sync), and the
-// conditional subtract of n takes its borrows the same way.  t < a + n <
-// 2R throughout, so one bit above the top word (kept by lane 31) holds
-// it.
-//
-// What bounds it on an H100: the 2 nw^2 + nw 32x32->64 multiply-adds of
-// a product on the INT32 pipe (an IMAD.WIDE takes two issues).  With a
-// warp a row and tens of rows, the card is far below that: a product is
-// nw dependent word steps, each W multiply-add pairs with three shared
-// loads and a store, plus two shuffles and the m_i broadcast, so the
-// kernel is latency bound (as B4 is at 768 limbs on 64 rows): one warp
-// on one of an SM's four schedulers.  What the design does about it: a
-// step's shared loads and multiplies go in chunks of 4 words, all issued
-// before the chunk's two carry chains, which are additions only (20%
-// faster than a word at a time on an H100, PERF.md §6).  Spreading a
-// row over the SM's four schedulers is later work.
+// What bounds it on an H100: the 2 nw^2 + nw 32x32->64 multiply-adds of a
+// Montgomery product on the INT32 pipe (an IMAD.WIDE takes two issues).
+// This design does more of them, about 2.5 nw^2 (A and C nw^2 each, B
+// about half of that), each one IMAD.WIDE.U32 with a carry-out and half
+// an IADD3.X besides its shared-memory load; it gains all the same
+// because its products are parallel (a thread's chain is nw terms a pass
+// instead of a row's nw dependent word steps with their shuffles and
+// broadcasts), a product needs a handful of barriers, and a batch smaller
+// than the card takes more SMs a row (a cluster of up to 8 blocks).
+// Measured (PERF.md section 6): without the products'
+// multiply-adds 4-13 us of a 25-58 us Montgomery product remain
+// (normalisation, barriers, cluster stores); knocking out a's broadcast
+// or b's loads saves 5-15%, and loading a chunk's words ahead of its
+// carry chain 15-23%: the chain of dependent multiply-adds binds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int LANES = 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_ROWS = 8;          // rows (warps) of a block
-constexpr int OPERANDS = 4;          // n, t, acc, x
 constexpr size_t SMEM_MAX = 232448;  // shared memory a block may use
+constexpr int PAD = 32;              // zero words around a column array
 
-// Carries into this lane (return) and out of lane 31 (cout) of a sum
-// whose lanes generate (gen) or propagate (prop) a carry; gen and prop
-// are never both set in one lane.
-__device__ __forceinline__ uint32_t lookahead(bool gen, bool prop, int l,
-                                              uint32_t& cout) {
-  const uint64_t G = __ballot_sync(FULL, gen);
-  const uint64_t P = __ballot_sync(FULL, prop);
-  const uint64_t c = ((G | P) + G) ^ (G | P) ^ G;   // carry into each bit
-  cout = (uint32_t)(c >> LANES) & 1u;
-  return (uint32_t)(c >> l) & 1u;
+// Words of a row's operands, product and columns (n, n', acc, x, y, m:
+// nw each; t: 2 nw + 32; three column arrays of 2 nw positions with PAD
+// zero words on each side), and of its segment flags (generate and
+// propagate masks and carries of the 32-position segments of a product).
+__host__ __device__ constexpr size_t ops_words(int nw) {
+  return 14 * (size_t)nw + 32 + 6 * PAD;
+}
+__host__ __device__ constexpr size_t seg_words(int nw) {
+  return 3 * ((size_t)nw / 16 + 8);
 }
 
-// x * y + z, 32 x 32 -> 64 bits (PTX mad.wide.u32: an asm block, so the
-// compiler cannot fold a carry into it and put the multiply on the carry
-// chain)
-__device__ __forceinline__ uint64_t madw(uint32_t x, uint32_t y,
-                                         uint64_t z) {
-  uint64_t r;
-  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(x), "r"(y), "l"(z));
-  return r;
+struct Row {
+  int nw;
+  int g, G;            // this thread among the row's threads, their count
+  int tid, T, lane, warp;
+  int csize;           // blocks of the row's cluster
+  uint32_t *c0, *c1, *c2;   // column words by position (this block's copy)
+  uint32_t *sg, *sp, *sc;   // segment generate / propagate masks, carries
+};
+
+__device__ __forceinline__ void row_sync(const Row& r) {
+  if (r.csize == 1)
+    __syncthreads();
+  else
+    cg::this_cluster().sync();
 }
 
-// Words of a lane that a word step takes at once (see word_step).
-constexpr int CHUNK = 4;
+// v into *p (a word of a shared array) in every block of the row's
+// cluster; *p alone where the row is one block (or p lies in global
+// memory, mode 2)
+__device__ __forceinline__ void put_all(const Row& r, uint32_t* p,
+                                        uint32_t v) {
+  if (r.csize == 1) {
+    *p = v;
+    return;
+  }
+  cg::cluster_group cl = cg::this_cluster();
+  for (int k = 0; k < r.csize; ++k) *cl.map_shared_rank(p, k) = v;
+}
 
-// One word step over this lane's W words: t + a b_i + m_i n with the
-// pending carry cy at word 0, shifted down one word in place (t[w - 1]
-// takes the new word w).  Returns the new word 0 (u0, before the shift)
-// and the carry-out at word W (co).  Every pointer is this lane's word 0
-// of an interleaved operand.  The words after 0 go in chunks of CHUNK:
-// a chunk's shared loads and its products a_j b_i + t_j and m_i n_j are
-// issued first, all independent of the carries, and then only the two
-// carry chains (additions) run word by word; the last W - 1 mod CHUNK
-// words go one at a time.
-__device__ __forceinline__ void word_step(
-    const uint32_t* __restrict__ a, const uint32_t* __restrict__ n,
-    uint32_t* __restrict__ t, int W, uint32_t a0, uint32_t n0w, uint32_t bi,
-    uint32_t k0, uint32_t cy, uint32_t& u0, uint64_t& co) {
-  const uint32_t t0 = t[0];
-  const uint32_t m = __shfl_sync(FULL, (t0 + a0 * bi) * k0, 0);
-  uint64_t p = (uint64_t)a0 * bi + t0 + cy;
-  uint32_t c1 = (uint32_t)(p >> 32);
-  uint64_t q = (uint64_t)m * n0w + (uint32_t)p;
-  uint32_t c2 = (uint32_t)(q >> 32);
-  u0 = (uint32_t)q;
-  int w = 1;
-  for (; w + CHUNK <= W; w += CHUNK) {
-    uint64_t X[CHUNK], Y[CHUNK];
+// (s, h) += a b: a three-word column sum held as its low 64 bits s (a
+// register pair, the addend of IMAD.WIDE) and the word above, h
+__device__ __forceinline__ void mac(uint64_t& s, uint32_t& h, uint32_t a,
+                                    uint32_t b) {
+  uint32_t x = (uint32_t)s, y = (uint32_t)(s >> 32);
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(x), "+r"(y), "+r"(h)
+      : "r"(a), "r"(b));
+  s = ((uint64_t)y << 32) | x;
+}
+
+// Column sums of a b (plus init, where given, at every position) for this
+// thread's column pairs (k, k + nw), k = g + G s, one pair at a time,
+// written as three words to positions k and k + nw of every block's
+// column arrays; low: the columns below nw alone (product B).
+__device__ __forceinline__ void product(const Row& r, const uint32_t* a,
+                                        const uint32_t* b,
+                                        const uint32_t* init, bool low) {
+  const int nw = r.nw;
+  for (int k0 = r.g - r.lane; k0 < nw; k0 += r.G) {   // the warp's first k
+    const int k = k0 + r.lane;
+    uint64_t s = init ? init[k] : 0u, ls = 0u;
+    uint32_t h = 0u, lh = 0u;
+    const int qend = low ? k0 / LANES + 1 : nw / LANES;
+    for (int q = 0; q < qend; ++q) {
+      const int i0 = q * LANES;
+      if (i0 != k0) {
+        const uint32_t* bp = b + k - i0 + (i0 > k0 ? nw : 0);
+        // the chunk's 32 words of b first, then its 32 terms: the loads
+        // issue ahead of the carry chain (23% faster than 8 steps at a
+        // time, whose loads the compiler left on the chain; PERF.md §6)
+        uint32_t av[LANES], bv[LANES];
 #pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      X[j] = madw(a[(w + j) * LANES], bi, t[(w + j) * LANES]);
-      Y[j] = madw(m, n[(w + j) * LANES], 0);
-    }
+        for (int u = 0; u < LANES; u += 4) {
+          const uint4 A = *reinterpret_cast<const uint4*>(a + i0 + u);
+          av[u] = A.x;
+          av[u + 1] = A.y;
+          av[u + 2] = A.z;
+          av[u + 3] = A.w;
+        }
 #pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      p = X[j] + c1;
-      c1 = (uint32_t)(p >> 32);
-      q = Y[j] + (uint32_t)p + c2;
-      c2 = (uint32_t)(q >> 32);
-      t[(w + j - 1) * LANES] = (uint32_t)q;
+        for (int u = 0; u < LANES; ++u) bv[u] = bp[-u];
+#pragma unroll
+        for (int u = 0; u < LANES; ++u) mac(s, h, av[u], bv[u]);
+      } else {
+        // the chunk of the switch: lane l leaves column k after step l
+        // (i = k) for column k + nw
+#pragma unroll 4
+        for (int u = 0; u < LANES; ++u) {
+          mac(s, h, a[i0 + u], b[k - i0 - u + (u > r.lane ? nw : 0)]);
+          if (u == r.lane) {
+            ls = s;
+            lh = h;
+            s = init ? init[k + nw] : 0u;
+            h = 0u;
+          }
+        }
+      }
     }
-  }
-  for (; w < W; ++w) {
-    p = madw(a[w * LANES], bi, t[w * LANES]) + c1;
-    c1 = (uint32_t)(p >> 32);
-    q = madw(m, n[w * LANES], 0) + (uint32_t)p + c2;
-    c2 = (uint32_t)(q >> 32);
-    t[(w - 1) * LANES] = (uint32_t)q;
-  }
-  co = (uint64_t)c1 + c2;
-}
-
-// out = a * b * R^-1 mod n, canonical, for a < R and b < n; t is the
-// row's product scratch.  out may alias a or b (both are read before out
-// is written).
-__device__ __forceinline__ void mont_mul(const uint32_t* a,
-                                         const uint32_t* b,
-                                         const uint32_t* n, uint32_t* t,
-                                         uint32_t k0, uint32_t* out, int W,
-                                         int l) {
-  const bool top = l == LANES - 1;
-  for (int w = 0; w < W; ++w) t[w * LANES] = 0;
-  const uint32_t a0 = a[0], n0w = n[0];
-  uint32_t cy = 0;   // carry pending at this lane's word 0 (lane 0: none)
-  uint32_t tx = 0;   // lane 31: the bit above the top word
-  for (int src = 0; src < LANES; ++src) {
-    for (int wb = 0; wb < W; ++wb) {
-      const uint32_t bi = __shfl_sync(FULL, b[wb * LANES], src);
-      uint32_t u0;
-      uint64_t co;
-      word_step(a, n, t, W, a0, n0w, bi, k0, cy, u0, co);
-      const uint32_t above = __shfl_down_sync(FULL, u0, 1);
-      const uint64_t below = __shfl_up_sync(FULL, (unsigned long long)co, 1);
-      const uint64_t s = (uint64_t)(top ? tx : above) + co;
-      t[(W - 1) * LANES] = (uint32_t)s;
-      if (top) tx = (uint32_t)(s >> 32);
-      // the lane below's top-word sum carries into this lane's word 0
-      cy = l == 0 ? 0u : (uint32_t)(((uint64_t)u0 + below) >> 32);
-    }
-  }
-  // resolve: this lane's own pending carry, then the carries between lanes
-  uint32_t c = cy;
-  bool ones = true;
-  for (int w = 0; w < W; ++w) {
-    const uint64_t v = (uint64_t)t[w * LANES] + c;
-    t[w * LANES] = (uint32_t)v;
-    c = (uint32_t)(v >> 32);
-    ones = ones && (uint32_t)v == FULL;
-  }
-  uint32_t cout;
-  c = lookahead(c != 0, ones, l, cout);
-  tx += cout;        // only lane 31's tx counts
-  // add the incoming carry; t < 2n: the borrows of t - n, by lane
-  uint32_t bw = 0;
-  bool zero = true;
-  for (int w = 0; w < W; ++w) {
-    const uint64_t v = (uint64_t)t[w * LANES] + c;
-    const uint32_t tw = (uint32_t)v;
-    t[w * LANES] = tw;
-    c = (uint32_t)(v >> 32);
-    const uint64_t d = (uint64_t)tw - n[w * LANES] - bw;
-    bw = (uint32_t)(d >> 32) & 1u;
-    zero = zero && (uint32_t)d == 0;
-  }
-  uint32_t bout;
-  bw = lookahead(bw != 0, zero, l, bout);
-  const bool sub = __shfl_sync(FULL, tx, LANES - 1) != 0 || bout == 0;
-  for (int w = 0; w < W; ++w) {
-    const uint32_t tw = t[w * LANES];
-    if (sub) {
-      const uint64_t d = (uint64_t)tw - n[w * LANES] - bw;
-      bw = (uint32_t)(d >> 32) & 1u;
-      out[w * LANES] = (uint32_t)d;
-    } else {
-      out[w * LANES] = tw;
+    put_all(r, r.c0 + k, (uint32_t)ls);
+    put_all(r, r.c1 + k, (uint32_t)(ls >> 32));
+    put_all(r, r.c2 + k, lh);
+    if (!low) {
+      put_all(r, r.c0 + k + nw, (uint32_t)s);
+      put_all(r, r.c1 + k + nw, (uint32_t)(s >> 32));
+      put_all(r, r.c2 + k + nw, h);
     }
   }
 }
 
-// this lane's words of a row of 16-bit limbs (int32 [2 nw])
+// Carry (or borrow) into each segment of NS from the flags sg / sp that
+// every block holds: warp 0 of each block, 32 segments at a time, into
+// sc[0 .. NS - 1], and out of the last into sc[NS].
+__device__ __forceinline__ void resolve(const Row& r, int NS) {
+  if (r.warp == 0) {
+    uint32_t carry = 0;
+    for (int b0 = 0; b0 < NS; b0 += LANES) {
+      const int j = b0 + r.lane;
+      uint32_t Gm = 0, Pm = 0;
+      if (j < NS) {
+        Gm = r.sg[j];
+        Pm = r.sp[j];
+      }
+      const bool gs = ((((uint64_t)(Gm | Pm) + Gm) >> 32) & 1u) != 0;
+      const bool ps = Pm == FULL;
+      const uint64_t GG = __ballot_sync(FULL, gs);
+      const uint64_t PP = __ballot_sync(FULL, ps);
+      const uint64_t c = ((GG | PP) + GG + carry) ^ (GG | PP) ^ GG;
+      if (j < NS) r.sc[j] = (uint32_t)(c >> r.lane) & 1u;
+      carry = (uint32_t)(c >> min(LANES, NS - b0)) & 1u;   // out of NS - 1
+    }
+    if (r.lane == 0) r.sc[NS] = carry;
+  }
+  __syncthreads();
+}
+
+// carry into this lane of a segment with masks (Gm, Pm) and carry-in cin
+__device__ __forceinline__ uint32_t lane_carry(uint32_t Gm, uint32_t Pm,
+                                               uint32_t cin, int lane) {
+  const uint64_t c = ((uint64_t)(Gm | Pm) + Gm + cin) ^ (Gm | Pm) ^ Gm;
+  return (uint32_t)(c >> lane) & 1u;
+}
+
+// The column sums at positions 0 .. P - 1 as words into out (every
+// block's copy from position keep on; below it only this block's, as the
+// carries' scratch).  Position p belongs to thread p mod G.
+__device__ __forceinline__ void normalise(const Row& r, int P,
+                                          uint32_t* out, int keep) {
+  const int wb = r.g - r.lane;
+  for (int pb = wb; pb < P; pb += r.G) {
+    const int p = pb + r.lane;
+    bool gen = false, prop = false;
+    if (p < P) {
+      const uint64_t xp =
+          (uint64_t)r.c0[p] + r.c1[p - 1] + (uint64_t)r.c2[p - 2];
+      const uint64_t xq =
+          (uint64_t)r.c0[p - 1] + r.c1[p - 2] + (uint64_t)r.c2[p - 3];
+      const uint64_t y = (xp & FULL) + (xq >> 32);
+      const uint32_t w = (uint32_t)y;
+      gen = (y >> 32) != 0;
+      prop = w == FULL;
+      out[p] = w;
+    }
+    const uint32_t Gm = __ballot_sync(FULL, gen);
+    const uint32_t Pm = __ballot_sync(FULL, prop);
+    if (r.lane == 0) {
+      put_all(r, r.sg + pb / LANES, Gm);
+      put_all(r, r.sp + pb / LANES, Pm);
+    }
+  }
+  row_sync(r);
+  resolve(r, (P + LANES - 1) / LANES);
+  for (int pb = wb; pb < P; pb += r.G) {
+    const int p = pb + r.lane, s = pb / LANES;
+    const uint32_t c = lane_carry(r.sg[s], r.sp[s], r.sc[s], r.lane);
+    if (p < P && p >= keep) put_all(r, out + p, out[p] + c);
+  }
+  row_sync(r);
+}
+
+// out = u - n if u >= n else u, for u = t[nw .. 2 nw] (t[2 nw] 0 or 1);
+// out in every block's copy, out2 (where given) too: in every block's
+// copy where shared, by each word's owner where global.
+template <bool SHARED2>
+__device__ __forceinline__ void cond_sub(const Row& r, const uint32_t* t,
+                                         const uint32_t* n, uint32_t* out,
+                                         uint32_t* out2) {
+  const int nw = r.nw, wb = r.g - r.lane, NS = nw / LANES;
+  for (int pb = wb; pb < nw; pb += r.G) {
+    const int p = pb + r.lane;
+    const uint32_t u = t[nw + p], v = n[p];
+    const uint32_t Gm = __ballot_sync(FULL, u < v);
+    const uint32_t Pm = __ballot_sync(FULL, u == v);
+    if (r.lane == 0) {
+      put_all(r, r.sg + pb / LANES, Gm);
+      put_all(r, r.sp + pb / LANES, Pm);
+    }
+  }
+  row_sync(r);
+  resolve(r, NS);
+  const bool sub = t[2 * nw] != 0 || r.sc[NS] == 0;
+  for (int pb = wb; pb < nw; pb += r.G) {
+    const int p = pb + r.lane, s = pb / LANES;
+    const uint32_t bin = lane_carry(r.sg[s], r.sp[s], r.sc[s], r.lane);
+    const uint32_t u = t[nw + p];
+    const uint32_t w = sub ? u - n[p] - bin : u;
+    put_all(r, out + p, w);
+    if (out2) {
+      if (SHARED2)
+        put_all(r, out2 + p, w);
+      else
+        out2[p] = w;
+    }
+  }
+  row_sync(r);
+}
+
+// out = a b R^-1 mod n, canonical, for a < R and b < n (and out2 = out
+// where given); out may alias a or b.
+template <bool SHARED2>
+__device__ __forceinline__ void mont_mul(const Row& r, const uint32_t* a,
+                                         const uint32_t* b, uint32_t* out,
+                                         uint32_t* out2, const uint32_t* n,
+                                         const uint32_t* np, uint32_t* t,
+                                         uint32_t* m) {
+  const int nw = r.nw;
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t* pa = pass == 0 ? a : pass == 1 ? t : m;
+    const uint32_t* pb = pass == 0 ? b : pass == 1 ? np : n;
+    product(r, pa, pb, pass == 2 ? t : nullptr, pass == 1);
+    row_sync(r);
+    normalise(r, pass == 1 ? nw : 2 * nw + 1, pass == 1 ? m : t,
+              pass == 2 ? nw : 0);
+  }
+  cond_sub<SHARED2>(r, t, n, out, out2);
+}
+
+// words [0, nw) of v from a row of 16-bit limbs (int32 [2 nw]), this
+// block's copy
 __device__ __forceinline__ void load_words(uint32_t* v, const int* src,
-                                           int W, int l) {
-  for (int w = 0; w < W; ++w) {
-    const size_t j = (size_t)l * W + w;
-    v[w * LANES] = (uint32_t)__ldg(src + 2 * j) |
-                   ((uint32_t)__ldg(src + 2 * j + 1) << 16);
+                                           int nw, int tid, int T) {
+  for (int j = tid; j < nw; j += T)
+    v[j] = (uint32_t)__ldg(src + 2 * j) |
+           ((uint32_t)__ldg(src + 2 * j + 1) << 16);
+}
+
+__device__ __forceinline__ void set_one(uint32_t* v, int nw, int tid,
+                                        int T) {
+  for (int j = tid; j < nw; j += T) v[j] = j == 0;
+}
+
+// Bring nw words of src (global) into dst (shared) by cp.async, 16 bytes
+// a copy; cp_wait() ends them.
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* src,
+                                      int nw, int tid, int T) {
+  for (int j = 4 * tid; j < nw; j += 4 * T) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + j);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src + j)
+                 : "memory");
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// the value 1 (word 0 of lane 0)
-__device__ __forceinline__ void set_one(uint32_t* v, int W, int l) {
-  for (int w = 0; w < W; ++w) v[w * LANES] = l == 0 && w == 0;
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 }
 
-// MODE 0: operands and table in shared memory; 1: the table in the
-// global scratch [B, 2^w, nw]; 2: both in the scratch [B, 4 + 2^w, nw].
+// MODE 0: operands, columns and table in shared memory; 1: the table in
+// the global scratch [B, 2^w, nw]; 2: everything but the segment flags in
+// the scratch [B, ops_words + 2^w nw] (one block a row).
 template <int MODE>
-__global__ void __launch_bounds__(MAX_ROWS * LANES)
+__global__ void __launch_bounds__(1024)
 limb_modexp_wide_kernel(const int* __restrict__ base,
                         const int* __restrict__ digits, int n_digits,
                         int per_row, const int* __restrict__ nmod,
-                        const int* __restrict__ n0,
+                        const int* __restrict__ nprime,
                         const int* __restrict__ r2, int ctx_per_row,
-                        int* __restrict__ out, int B, int nw, int window,
+                        int* __restrict__ out, int nw, int window,
                         uint32_t* __restrict__ scratch) {
-  extern __shared__ uint32_t smem[];
-  const int l = threadIdx.x & (LANES - 1);
-  const int grp = threadIdx.x / LANES;          // the block's row
-  const int row = blockIdx.x * (blockDim.x / LANES) + grp;
-  if (row >= B) return;       // a whole warp: its shuffles name only it
-  const int W = nw / LANES, T = 1 << window;
-  const size_t L = 2 * (size_t)nw;
-  const size_t ops_w = (size_t)OPERANDS * nw, tab_w = (size_t)T * nw;
-  uint32_t* ops;
-  uint32_t* tab;
-  if (MODE == 0) {
-    ops = smem + grp * (ops_w + tab_w);
-    tab = ops + ops_w;
-  } else if (MODE == 1) {
-    ops = smem + grp * ops_w;
-    tab = scratch + row * tab_w;
+  extern __shared__ __align__(16) uint32_t smem[];
+  Row r;
+  r.nw = nw;
+  r.tid = threadIdx.x;
+  r.T = blockDim.x;
+  r.lane = r.tid & (LANES - 1);
+  r.warp = r.tid / LANES;
+  int rank = 0, row = blockIdx.x;
+  if (MODE == 2) {
+    r.csize = 1;
   } else {
-    ops = scratch + row * (ops_w + tab_w);
-    tab = ops + ops_w;
+    cg::cluster_group cl = cg::this_cluster();
+    r.csize = (int)cl.num_blocks();
+    rank = (int)cl.block_rank();
+    row = blockIdx.x / r.csize;
   }
-  uint32_t* n = ops + l;
-  uint32_t* t = n + nw;
-  uint32_t* acc = t + nw;
+  r.g = rank * r.T + r.tid;
+  r.G = r.T * r.csize;
+  const int TT = 1 << window;
+  const size_t ow = ops_words(nw), tw = (size_t)TT * nw;
+  uint32_t* ops = MODE == 2 ? scratch + (size_t)row * (ow + tw) : smem;
+  uint32_t* tab = MODE == 0   ? smem + ow
+                  : MODE == 1 ? scratch + (size_t)row * tw
+                              : ops + ow;
+  uint32_t* seg = MODE == 0 ? smem + ow + tw : MODE == 1 ? smem + ow : smem;
+  uint32_t* n = ops;
+  uint32_t* np = n + nw;
+  uint32_t* acc = np + nw;
   uint32_t* x = acc + nw;
-  uint32_t* tb = tab + l;     // this lane's word 0 of entry 0
+  uint32_t* y = x + nw;
+  uint32_t* m = y + nw;
+  uint32_t* t = m + nw;                          // 2 nw + 32 words
+  r.c0 = t + 2 * nw + 32 + PAD;
+  r.c1 = r.c0 + 2 * nw + 2 * PAD;
+  r.c2 = r.c1 + 2 * nw + 2 * PAD;
+  const int nseg = nw / 16 + 8;
+  r.sg = seg;
+  r.sp = seg + nseg;
+  r.sc = seg + 2 * nseg;
+
+  const size_t L = 2 * (size_t)nw;
   const size_t crow = ctx_per_row ? (size_t)row : 0;
-  load_words(n, nmod + crow * L, W, l);
-  const uint32_t k0 = (uint32_t)__ldg(n0 + crow);
+  load_words(n, nmod + crow * L, nw, r.tid, r.T);
+  load_words(np, nprime + crow * L, nw, r.tid, r.T);
+  load_words(acc, base + (size_t)row * L, nw, r.tid, r.T);
+  load_words(x, r2 + crow * L, nw, r.tid, r.T);
+  for (int j = r.tid; j < PAD; j += r.T) {
+    r.c0[j - PAD] = r.c1[j - PAD] = r.c2[j - PAD] = 0u;
+    r.c0[2 * nw + j] = r.c1[2 * nw + j] = r.c2[2 * nw + j] = 0u;
+  }
+  row_sync(r);
 
-  // table[1] = bm = base * R^2 * R^-1; table[0] = 1 * R^2 * R^-1 = R mod n;
-  // table[v] = table[v-1] * bm
-  load_words(acc, base + row * L, W, l);
-  load_words(x, r2 + crow * L, W, l);
-  mont_mul(acc, x, n, t, k0, tb + nw, W, l);
-  set_one(acc, W, l);
-  mont_mul(acc, x, n, t, k0, tb, W, l);          // acc = 1_M from here on
-  for (int w = 0; w < W; ++w) acc[w * LANES] = tb[w * LANES];
-  for (int v = 2; v < T; ++v)
-    mont_mul(tb + (size_t)(v - 1) * nw, tb + nw, n, t, k0,
-             tb + (size_t)v * nw, W, l);
-
+  // the ladder, one Montgomery product a step: bm into table[1] (mode 1:
+  // y, and the table's copy), 1_M into acc (and table[0]), table[v] =
+  // table[v-1] * bm (mode 1: built in x from y), per digit `window`
+  // squarings and table[d] * acc (mode 1: the entry staged into y by
+  // cp.async at the digit's first squaring), the exit acc * 1
+  constexpr bool DIRECT = MODE != 1;        // operands read from the table
   const int* dig = per_row ? digits + (size_t)row * n_digits : digits;
-  for (int step = 0; step < n_digits; ++step) {
-    const int d = __ldg(dig + step);
-    for (int s = 0; s < window; ++s) mont_mul(acc, acc, n, t, k0, acc, W, l);
-    mont_mul(tb + (size_t)d * nw, acc, n, t, k0, acc, W, l);
+  const int n_mul = TT + n_digits * (window + 1) + 1;
+  for (int st = 0; st < n_mul; ++st) {
+    const uint32_t *A = acc, *Bv = acc;
+    uint32_t* O = acc;
+    uint32_t* O2 = nullptr;
+    if (st == 0) {
+      Bv = x;
+      O = DIRECT ? tab + nw : y;
+      O2 = DIRECT ? nullptr : tab + nw;
+    } else if (st == 1) {
+      set_one(acc, nw, r.tid, r.T);
+      __syncthreads();
+      Bv = x;
+      O2 = tab;
+    } else if (st < TT) {
+      A = DIRECT ? tab + (size_t)(st - 1) * nw : st == 2 ? y : x;
+      Bv = DIRECT ? tab + nw : y;
+      O = DIRECT ? tab + (size_t)st * nw : x;
+      O2 = DIRECT ? nullptr : tab + (size_t)st * nw;
+    } else if (st < n_mul - 1) {
+      const int j = st - TT, k = j / (window + 1), s = j % (window + 1);
+      const int d = __ldg(dig + k);
+      if (s < window) {
+        if (!DIRECT && s == 0) stage(y, tab + (size_t)d * nw, nw, r.tid, r.T);
+      } else {
+        if (!DIRECT) cp_wait();
+        A = DIRECT ? tab + (size_t)d * nw : y;
+      }
+    } else {
+      set_one(x, nw, r.tid, r.T);
+      __syncthreads();
+      Bv = x;
+    }
+    mont_mul<MODE == 0>(r, A, Bv, O, O2, n, np, t, m);
   }
 
-  // exit: acc * 1 leaves the Montgomery domain
-  set_one(x, W, l);
-  mont_mul(acc, x, n, t, k0, acc, W, l);
-  int* o = out + row * L;
-  for (int w = 0; w < W; ++w) {
-    const size_t j = (size_t)l * W + w;
-    o[2 * j] = (int)(acc[w * LANES] & 0xFFFFu);
-    o[2 * j + 1] = (int)(acc[w * LANES] >> 16);
+  if (rank == 0) {
+    int* o = out + (size_t)row * L;
+    for (int j = r.tid; j < nw; j += r.T) {
+      o[2 * j] = (int)(acc[j] & 0xFFFFu);
+      o[2 * j + 1] = (int)(acc[j] >> 16);
+    }
   }
 }
 
 template <int MODE>
-int launch_mode(int grid, int threads, size_t smem, void* stream,
+int launch_mode(int B, int threads, int cluster, size_t smem, void* stream,
                 const void* base, const void* digits, int n_digits,
-                int per_row, const void* nmod, const void* n0, const void* r2,
-                int ctx_per_row, void* out, int B, int nw, int window,
-                void* scratch) {
+                int per_row, const void* nmod, const void* nprime,
+                const void* r2, int ctx_per_row, void* out, int nw,
+                int window, void* scratch) {
+  auto kern = limb_modexp_wide_kernel<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
-      limb_modexp_wide_kernel<MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  limb_modexp_wide_kernel<MODE><<<grid, threads, smem,
-                                  (cudaStream_t)stream>>>(
-      (const int*)base, (const int*)digits, n_digits, per_row,
-      (const int*)nmod, (const int*)n0, (const int*)r2, ctx_per_row,
-      (int*)out, B, nw, window, (uint32_t*)scratch);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = MODE == 2 ? 0 : 1;
+  if (MODE != 2 && cluster > 1) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  err = cudaLaunchKernelEx(&cfg, kern, (const int*)base, (const int*)digits,
+                           n_digits, per_row, (const int*)nmod,
+                           (const int*)nprime, (const int*)r2, ctx_per_row,
+                           (int*)out, nw, window, (uint32_t*)scratch);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared-memory bytes of one row at `mode` (mont_kernel.wide_row_bytes):
-// 4 + 2^window operands of nw words (mode 0), the 4 operands (mode 1),
-// none (mode 2).
+// Shared-memory bytes of one row's block at `mode`
+// (mont_kernel.wide_row_bytes): the operands, product and columns
+// (ops_words), the table of 2^window entries (mode 0) and the segment
+// flags; mode 1 without the table, mode 2 the segment flags alone.
 extern "C" long long limb_modexp_wide_row_bytes(int nw, int window,
                                                 int mode) {
-  const size_t ops = mode == 0 ? OPERANDS + ((size_t)1 << window)
-                     : mode == 1 ? OPERANDS : 0;
-  return (long long)(ops * nw * sizeof(uint32_t));
+  size_t words = seg_words(nw);
+  if (mode < 2) words += ops_words(nw);
+  if (mode == 0) words += ((size_t)1 << window) * nw;
+  return (long long)(words * sizeof(uint32_t));
 }
 
-// Launch on `stream`: one warp a row, `rb` rows a block (1..8), nw a
+// Launch on `stream`: a block of 32 `warps` threads a row (1 to 32),
+// `cluster` blocks a row (1, 2, 4 or 8; a thread block cluster), nw a
 // multiple of 32 words, `mode` as above with `scratch` the global uint32
-// buffer of modes 1 ([B, 2^window, nw]) and 2 ([B, 4 + 2^window, nw]).
-// Returns the cudaError_t of the attribute call or of the launch (0 on
-// success; cudaErrorInvalidValue for a shape the kernel does not take).
-// base, out: int32 [B, 2 nw] 16-bit limbs; digits int32 [D] (per_row 0)
-// or [B, D]; nmod, r2: int32 [2 nw] (ctx_per_row 0) or [B, 2 nw]; n0:
-// int32 [1] or [B], the low 32 bits of -n^-1 mod 2^32.
+// buffer of modes 1 ([B, 2^window nw]) and 2 ([B, ops_words(nw) +
+// 2^window nw]).  Returns the cudaError_t of the attribute call, the cluster
+// occupancy query or the launch (0 on success; cudaErrorInvalidValue for
+// a shape the kernel does not take).  base, out: int32 [B, 2 nw] 16-bit
+// limbs; digits int32 [D] (per_row 0) or [B, D]; nmod, nprime, r2: int32
+// [2 nw] (ctx_per_row 0) or [B, 2 nw], n' = -n^-1 mod 2^(32 nw).
 extern "C" int limb_modexp_wide_launch(const void* base, const void* digits,
                                        int n_digits, int per_row,
-                                       const void* nmod, const void* n0,
+                                       const void* nmod, const void* nprime,
                                        const void* r2, int ctx_per_row,
                                        void* out, int B, int nw, int window,
-                                       int rb, int mode, void* scratch,
+                                       int warps, int cluster, int mode,
+                                       void* scratch,
                                        void* stream) {
   if (B < 1 || nw < LANES || nw % LANES || window < 1 || window > 8 ||
-      rb < 1 || rb > MAX_ROWS || mode < 0 || mode > 2 ||
-      (mode > 0 && scratch == nullptr))
+      warps < 1 || warps > 32 ||
+      !(cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8) ||
+      mode < 0 || mode > 2 ||
+      (mode == 2 && cluster != 1) || (mode > 0 && scratch == nullptr) ||
+      n_digits < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)rb * (size_t)limb_modexp_wide_row_bytes(nw, window, mode);
+  const size_t smem = (size_t)limb_modexp_wide_row_bytes(nw, window, mode);
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = (B + rb - 1) / rb;
-#define B4W_LAUNCH(M)                                                     \
-  launch_mode<M>(grid, rb * LANES, smem, stream, base, digits, n_digits,  \
-                 per_row, nmod, n0, r2, ctx_per_row, out, B, nw, window,  \
+  const int threads = warps * LANES;
+#define B4W_LAUNCH(M)                                                      \
+  launch_mode<M>(B, threads, cluster, smem, stream, base, digits, n_digits, \
+                 per_row, nmod, nprime, r2, ctx_per_row, out, nw, window,   \
                  scratch)
   switch (mode) {
     case 0: return B4W_LAUNCH(0);

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the launch alternatives of kernels B1, B2, B3 and B4 on one GPU.
+"""Time the launch alternatives of kernels B1, B2, B3, B4 and B4w on one GPU.
 
-    python scripts/ab_sliding.py [--kernel b1|b2|b3|b4] [--rows N,N,...]
-                                 [--wide-rows N,N,...]
+    python scripts/ab_sliding.py [--kernel b1|b2|b3|b4|b4w] [--rows N,N,...]
+                                 [--wide-rows N,N,...] [--trees A B]
 
 --kernel b1 (default): builds this tree's B1 and, at k = 320 (e = n,
 with fin), k = 192 (e = p - 1), k = 512 (e = n^2) and k = 704 (a
@@ -30,19 +30,38 @@ exponent (512 digits, extract_randomness' exponent) at L = 128 on
 --rows and at L = 256 on --wide-rows, and on 64 and 256 per-row 1024-bit
 moduli and exponents at L = 64 (the Fermat batch); outputs must equal
 the wrapper's own pick (mont_kernel.lanes_per_row, BLOCK_THREADS).
+
+--kernel b4w: the B4 / B4w rule and B4w's launch shapes.  On a shared
+32-digit exponent (177 Montgomery products a row) at L = 256 and 512 on
+5, 16, 64, 256 and 1,024 rows, at L = 768 on 16, 64, 256 and 1,024, at
+L = 128 on 4,096, and at B4w's own widths (L = 1,024 and 1,536 on 16
+and 64 rows), times B4 (its own lane rule) beside B4w at every launch
+shape of a grid (warps a block, blocks a cluster); every
+output must equal the pick of mont_kernel.variant and wide_shape, which
+is printed beside the fastest.  With --trees A B (two checkouts, e.g.
+`git archive`s of two commits), then times in each tree, in turns (A,
+B, B, A), in a process of its own that imports that tree's package:
+mont_pow_b4w at L = 1,024 and 1,536 on 64 rows x 32 digits, and an
+8192-bit key's (primes from keygen(8192, random.Random(8192)), found
+once here) level-1 and level-2 encrypt and decrypt on 16 rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import random
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+# the package of this checkout, or (--trees) of the tree a run is given
+ROOT = Path(os.environ.get("AB_TREE") or Path(__file__).resolve().parents[1])
 sys.path.insert(0, str(ROOT))
 
 from paillier_tpu_torch.bigint import cuda_build  # noqa: E402
@@ -129,6 +148,35 @@ def b4_runner(lib, ctx, x, d, tpi, threads):
             xk.data_ptr(), d.data_ptr(), d.shape[-1], int(d.dim() == 2),
             n.data_ptr(), n0.data_ptr(), r2.data_ptr(),
             int(ctx.n.dim() == 2), out.data_ptr(), B, nw, 4, tpi, rb,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out[:, :L]
+    return run
+
+
+def b4w_runner(lib, ctx, x, d, shape):
+    """A call of B4w on (ctx, base limbs x, digits d), window 4, at launch
+    shape (warps a block, blocks a cluster); the operands are prepared as
+    mont_kernel.launch_wide prepares them, once, outside the call."""
+    B, L = x.shape
+    nw = mk.wide_words(L)
+    mode = mk.wide_mode(nw, 4)
+    n, nprime, r2 = mk._wide_ctx(ctx, nw)
+    xk = torch.nn.functional.pad(x.to(torch.int32), (0, 2 * nw - L)
+                                 ).contiguous()
+    d = d.to(torch.int32).contiguous()
+    scratch = torch.empty((B, mk.wide_scratch_words(nw, 4, mode)) if mode
+                          else (0,), dtype=torch.int32, device=x.device)
+    warps, cluster = shape
+
+    def run():
+        out = torch.empty((B, 2 * nw), dtype=torch.int32, device=x.device)
+        err = lib.limb_modexp_wide_launch(
+            xk.data_ptr(), d.data_ptr(), d.shape[-1], int(d.dim() == 2),
+            n.data_ptr(), nprime.data_ptr(), r2.data_ptr(),
+            int(ctx.n.dim() == 2), out.data_ptr(), B, nw, 4, warps,
+            cluster, mode, scratch.data_ptr() if mode else None,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
@@ -289,28 +337,157 @@ def mode_b4(a, sh, dev):
                for threads in (64, 128, 256)}, rule)
 
 
+# B4w's launch shapes timed by --kernel b4w: warps a block under every
+# cluster size, and the warps that give one column pair a thread
+B4W_WARPS = (4, 8, 16, 24, 32)
+B4W_SHAPES = ([(256, r) for r in (5, 16, 64, 256, 1024)]
+              + [(512, r) for r in (5, 16, 64, 256, 1024)]
+              + [(768, r) for r in (16, 64, 256, 1024)] + [(128, 4096)]
+              + [(L, r) for L in (1024, 1536) for r in (16, 64)]
+              + [(5824, 2)])
+
+
+def mode_b4w(a, sh, dev):
+    lib4, libw = mk.load(), mk.load_wide()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for L, B in B4W_SHAPES:
+        N = sh.odd(16 * L)
+        ctx = make_mont_ctx(N, device=dev)
+        x = sh.limbs([sh.rng.randrange(N) for _ in range(B)], L)
+        d = torch.as_tensor(exp_digits(sh.odd(128), 4, 32), device=dev)
+        nw = mk.wide_words(L)
+        variants = {}
+        if L <= mk.REGISTER_MAX_LIMBS:
+            variants["B4"] = b4_runner(lib4, ctx, x, d, mk.lanes_per_row(
+                -(-L // 2), B, sms), mk.BLOCK_THREADS)
+        for c in mk.WIDE_CLUSTERS:
+            if c > 1 and (B * c > 4 * sms or mk.wide_mode(nw, 4) == 2):
+                continue
+            ws = set(B4W_WARPS) | {min(32, -(-nw // (32 * c)))}
+            for warps in sorted(ws):
+                if 32 * warps * c <= 2 * nw:
+                    variants[("B4w", warps, c)] = b4w_runner(
+                        libw, ctx, x, d, (warps, c))
+        rule = mk.variant(L, B, sms)
+        if rule == "B4w":
+            rule = ("B4w",) + mk.wide_shape(nw, B, sms)
+            if rule not in variants:
+                variants[rule] = b4w_runner(libw, ctx, x, d, rule[1:])
+        sweep(f"L={L} rows={B} 32 digits (B4 | B4w warps, cluster)",
+              variants, rule)
+
+
+def tree_run() -> None:
+    """One --trees run, in the tree's own process (AB_TREE): prints one
+    JSON line of ms.  Uses only names that every version of the port
+    with kernel B4w has (mont_pow_b4w, the package root's key classes),
+    so that two commits compare."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch.ops import random as prand
+    dev = torch.device("cuda")
+    args = json.loads(os.environ["AB_TREE_ARGS"])
+    rng = random.Random(13)
+    out = {}
+
+    def ev_ms(fn, reps=3):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(reps):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    for L in (1024, 1536):
+        N = rng.getrandbits(16 * L) | 1 << (16 * L - 1) | 1
+        ctx = make_mont_ctx(N, device=dev)
+        x = torch.as_tensor(ints_to_limbs(
+            [rng.randrange(N) for _ in range(64)], L).astype(np.int64),
+            device=dev)
+        d = torch.as_tensor(exp_digits(rng.getrandbits(128) | 1 << 127, 4,
+                                       32), device=dev)
+        out[f"B4w L={L} rows=64 32 digits"] = ev_ms(
+            lambda: mk.mont_pow_b4w(ctx, x, d, 4))
+    p, q = args["p"], args["q"]
+    n = p * q
+    sk_ = pt.SecretKey(n=n, g=n + 1, h=prand.random_qr_generator(
+        n, random.Random(8192)), k=1 << 4096, bits=8192,
+        lam=(p - 1) * (q - 1), p=p, q=q)
+    for lv in (1, 2):
+        enc = pt.Encryptor(sk_, lv, device=dev, rng=random.Random(lv))
+        dec = pt.Decryptor(sk_, lv, device=dev)
+        ms = [rng.randrange(n ** lv) for _ in range(16)]
+        ct = enc.encrypt(ms)                     # the host plans, warm
+        assert dec.decrypt(ct) == ms
+        for name, fn in (("encrypt", lambda: enc.encrypt(ms)),
+                         ("decrypt", lambda: dec.decrypt(ct))):
+            t = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append(1e3 * (time.perf_counter() - t0))
+            out[f"8192-bit L{lv} {name} 16 rows"] = min(t)
+    print(json.dumps(out), flush=True)
+
+
+def mode_trees(trees) -> None:
+    """--trees A B: tree_run in A, B, B, A; one line a run and a table."""
+    import paillier_tpu_torch as pt
+    t0 = time.perf_counter()
+    sk_, _ = pt.keygen(8192, random.Random(8192), device="cpu")
+    print(f"keygen(8192) primes on the host: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    env = dict(os.environ, AB_TREE_ARGS=json.dumps({"p": sk_.p, "q": sk_.q}))
+    runs = []
+    for tree in (trees[0], trees[1], trees[1], trees[0]):
+        tree = str(Path(tree).resolve())
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--kernel",
+             "tree-run"], cwd=tree, env=dict(env, AB_TREE=tree),
+            capture_output=True, text=True, timeout=1200)
+        if proc.returncode:
+            raise SystemExit(f"{tree}: {proc.stdout}{proc.stderr}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append((tree, rec))
+        print(f"{tree}: " + ", ".join(f"{k} {v:.3f} ms"
+                                      for k, v in rec.items()), flush=True)
+    for key in runs[0][1]:
+        print(f"{key}: " + "; ".join(
+            f"{Path(t).name} {min(r[key] for tt, r in runs if tt == t):.3f}-"
+            f"{max(r[key] for tt, r in runs if tt == t):.3f} ms"
+            for t in dict.fromkeys(t for t, _ in runs)), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4"),
-                    default="b1")
+    ap.add_argument("--kernel", choices=("b1", "b2", "b3", "b4", "b4w",
+                                         "tree-run"), default="b1")
     ap.add_argument("--rows", type=ints, default=None)
     ap.add_argument("--wide-rows", type=ints, default=None)
+    ap.add_argument("--trees", nargs=2, default=None)
     a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    if a.kernel == "tree-run":
+        return tree_run()
     a.rows = a.rows or {
         "b1": [512, 1024, 1536, 2048, 2112, 2560, 3072, 4096, 8192],
         "b2": [1024, 1056, 2048, 2112, 3072, 4096, 8192],
         "b3": [1024, 1056, 2048, 2112, 3072, 4096, 8192],
         "b4": [512, 768, 1024, 1280, 1536, 1792, 2048, 2560, 3072, 3584,
-               4096, 5120, 6144, 8192]}[a.kernel]
+               4096, 5120, 6144, 8192], "b4w": []}[a.kernel]
     a.wide_rows = a.wide_rows or (
         [256, 512, 1024, 2048, 4096] if a.kernel == "b4" else
         [256, 512, 1024, 1536, 2048, 4096])
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
     sh = Shapes(dev)
-    {"b1": mode_b1, "b2": mode_b2, "b3": mode_b3,
-     "b4": mode_b4}[a.kernel](a, sh, dev)
+    {"b1": mode_b1, "b2": mode_b2, "b3": mode_b3, "b4": mode_b4,
+     "b4w": mode_b4w}[a.kernel](a, sh, dev)
+    if a.trees:
+        mode_trees(a.trees)
     print(f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
 

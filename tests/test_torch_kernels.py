@@ -48,6 +48,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _b4(ctx, x, dig, window=4):
+    """The register kernel B4 at its own lane rule (mont_kernel.launch),
+    whichever kernel mont_pow_b4 would take for the shape."""
+    b, d, squeeze = mk._operands(ctx, x, dig, window, "B4")
+    out = mk.launch(ctx, b, d, window, mk.lanes_per_row(
+        -(-ctx.n_limbs // 2), b.shape[0], 132))
+    return out[0] if squeeze else out
+
+
+def _rule_kernel(L, rows):
+    """The launch counter of the kernel that mont_pow_b4 takes for rows
+    of L limbs on this card (mont_kernel.variant)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (mk.mont_pow_b4 if mk.variant(L, rows, sms) == "B4"
+            else mk.mont_pow_b4w)
+
+
 def _mma_emulate(packed, lhs, k, c=None):
     """Kernel B1's base extension as rns2_mont_mma.cuh runs it, in numpy:
     for channel group cg and 64-digit slice s, lane (g, t) takes its A
@@ -773,14 +790,14 @@ def test_kernel_b4_matches_plain_on_cuda(cuda_device, bits, rows):
                           device=cuda_device)
     for digits, want_e in ((per, es), (per[0], [es[0]] * rows)):
         before = mk.mont_pow_b4.launches
-        got = mk.mont_pow_b4(ctx, x, digits, 4)
+        got = _b4(ctx, x, digits, 4)
         assert mk.mont_pow_b4.launches == before + 1
         assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, digits, 4))
         assert host.limbs_to_ints(got.cpu().numpy()) == [
             pow(v, e, n) for v, e in zip(xs, want_e)]
     mods = [_odd(rng, bits) for _ in range(rows)]
     sctx = tmont.stack_mont_ctx(mods, L, device=cuda_device)
-    got = mk.mont_pow_b4(sctx, x, per, 4)
+    got = _b4(sctx, x, per, 4)
     assert torch.equal(got, tmont.mont_pow_digits_plain(sctx, x, per, 4))
     assert host.limbs_to_ints(got.cpu().numpy()) == [
         pow(v, e, m) for v, e, m in zip(xs, es, mods)]
@@ -1043,11 +1060,11 @@ def test_kernel_b4_verification_keys_on_cuda(cuda_device):
                           device=cuda_device)
     x = torch.as_tensor(host.ints_to_limbs(xs, 256).astype(np.int64),
                         device=cuda_device)
-    got = mk.mont_pow_b4(ctx, x, dig[:, -32:], 4)
+    got = _b4(ctx, x, dig[:, -32:], 4)
     assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig[:, -32:],
                                                         4))
     before = mk.mont_pow_b4.launches
-    got = mk.mont_pow_b4(ctx, x, dig, 4)
+    got = _b4(ctx, x, dig, 4)
     assert mk.mont_pow_b4.launches == before + 1
     assert host.limbs_to_ints(got.cpu().numpy()) == [
         pow(v, e, n2) for v, e in zip(xs, es)]
@@ -1129,10 +1146,12 @@ def test_b4_rows_past_256_words_take_twelve_words_a_lane():
     """Rows of 257 to 384 words (L = 513 to 768 limbs, moduli up to
     12,288 bits, n^3 of a 4096-bit key) run 32 lanes of 12 words (the
     register kernel's widest case), padded to 384 words, whatever the
-    batch.  The variant rule: the register kernel B4 takes moduli up to
-    768 limbs and kernel B4w every one past them (one limb more: 769),
-    a warp a row on 32-word multiples, with its table in shared memory
-    up to 2,905 words at window 4 and in global memory past them."""
+    batch.  The variant rule: kernel B4w takes every modulus past 768
+    limbs (one limb more: 769) and, below them, a batch of few rows
+    (mont_kernel.variant by rows and SMs; a batch that fills the card
+    stays on the register kernel B4); B4w pads rows to 32-word
+    multiples and keeps its table in shared memory up to 1,888 words at
+    window 4, in global memory past them."""
     assert mk.REGISTER_MAX_LIMBS == 768 and max(mk.WORDS_PER_LANE) == 12
     for nw in range(257, 385):
         for rows in (1, 64, 4096, 10 ** 6):
@@ -1142,8 +1161,10 @@ def test_b4_rows_past_256_words_take_twelve_words_a_lane():
     assert 16 * 384 * 4 == 24576
     assert mk.rows_per_block(24576, 128 // 32) == 4
     assert (mk.variant(768), mk.variant(769)) == ("B4", "B4w")
+    assert (mk.variant(768, 64, 132), mk.variant(768, 1024, 132)) == (
+        "B4w", "B4")
     assert mk.wide_words(769) == 416 and mk.wide_mode(416, 4) == 0
-    assert (mk.wide_mode(2880, 4), mk.wide_mode(2912, 4)) == (0, 1)
+    assert (mk.wide_mode(1888, 4), mk.wide_mode(2912, 4)) == (0, 1)
 
 
 @pytest.mark.cuda
@@ -1166,11 +1187,11 @@ def test_kernel_b4_l768_on_cuda(cuda_device, bits):
                                     for _ in xs]), device=cuda_device)
     for dig in (per[0], per):
         before = mk.mont_pow_b4.launches
-        got = mk.mont_pow_b4(ctx, x, dig, 4)
+        got = _b4(ctx, x, dig, 4)
         assert mk.mont_pow_b4.launches == before + 1
         assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig, 4))
     e = rng.getrandbits(256) | 1 << 255
-    got = mk.mont_pow_b4(ctx, x[:4], torch.as_tensor(
+    got = _b4(ctx, x[:4], torch.as_tensor(
         exp_digits(e, 4, 64), device=cuda_device), 4)
     assert host.limbs_to_ints(got.cpu().numpy()) == [pow(v, e, m)
                                                      for v in xs[:4]]
@@ -1190,7 +1211,7 @@ def test_level2_4096_round_trip_on_cuda(cuda_device):
     rng = random.Random(0x4096)
     ms = [rng.randrange(pk.n2) for _ in range(6)] + [0, pk.n2 - 1]
     rs = [rng.randrange(1, pk.n) for _ in ms]
-    launches = (sk.rns2_pow_sliding_b1, mx.rns2_pow_b2, mk.mont_pow_b4)
+    launches = (sk.rns2_pow_sliding_b1, mx.rns2_pow_b2, _rule_kernel(768, 8))
 
     def run(fn, want):
         before = [w.launches for w in launches]
@@ -1212,6 +1233,7 @@ def test_level2_4096_round_trip_on_cuda(cuda_device):
     assert dec.decrypt(alt) == ms
     xs = [rng.randrange(pk.n) for _ in range(4)]
     ys = [rng.randrange(pk.n) for _ in range(4)]
+    assert _rule_kernel(768, 4) is launches[2]
     nx = run(lambda: pt.nested_encrypt(pk, xs, rng, device=cuda_device),
              [1, 0, 1])
     yct = pt.Encryptor(pk, device=cuda_device).encrypt(ys)
@@ -1240,18 +1262,19 @@ def test_kernel_b4_l512_verification_keys_on_cuda(cuda_device, bits):
     v = rng.randrange(2, m)
     shares = [rng.getrandbits(bits) for _ in range(5)]
     exps = [120 * s for s in shares]
-    before = mk.mont_pow_b4.launches
+    kern = _rule_kernel(ctx.n_limbs, 5)
+    before = kern.launches
     vk = ThresholdKeyGenerator(4096, 5, 3, device=cuda_device
                                )._verification_keys(v, shares, 120, m)
-    assert mk.mont_pow_b4.launches == before + 1
+    assert kern.launches == before + 1
     nd = n_digits_for_bits(max(e.bit_length() for e in exps), 4)
     dig = torch.as_tensor(np.stack([exp_digits(e, 4, nd) for e in exps]),
                           device=cuda_device)
     x = torch.as_tensor(host.ints_to_limbs([v] * 5, ctx.n_limbs)
                         .astype(np.int64), device=cuda_device)
-    got = mk.mont_pow_b4(ctx, x, dig, 4)
+    got = _b4(ctx, x, dig, 4)
     assert host.limbs_to_ints(got.cpu().numpy()) == vk
-    assert torch.equal(mk.mont_pow_b4(ctx, x, dig[:, -4:], 4),
+    assert torch.equal(_b4(ctx, x, dig[:, -4:], 4),
                        tmont.mont_pow_digits_plain(ctx, x, dig[:, -4:], 4))
     assert [vk[0], vk[4]] == [pow(v, exps[0], m), pow(v, exps[4], m)]
 
@@ -1592,7 +1615,7 @@ def test_kernel_b4w_matches_register_b4_at_l768_on_cuda(cuda_device):
     xs, x = _b4w_rows(rng, [m], 33, 768, cuda_device)
     dig = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(32), 4, 8)
                                     for _ in xs]), device=cuda_device)
-    reg, launches = _wide_launch(lambda: mk.mont_pow_b4(ctx, x, dig, 4))
+    reg, launches = _wide_launch(lambda: _b4(ctx, x, dig, 4))
     assert launches == (1, 0)
     wide, launches = _wide_launch(lambda: mk.mont_pow_b4w(ctx, x, dig, 4))
     assert launches == (0, 1)
@@ -1624,6 +1647,134 @@ def test_kernel_b4w_failed_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel B4w launch failed"):
         mk.mont_pow_b4(ctx, x, [1, 2], 4)
     assert (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches) == before
+
+
+def _b4w_operands(ctx, x, dig, window=4):
+    """(base, int32 digits) as mont_pow_b4w checks them"""
+    b, d, _ = mk._operands(ctx, x, dig, window, "B4w")
+    return b, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_kernel_b4w_every_warp_count_on_cuda(cuda_device, cluster):
+    """The block (or cluster) a row of B4w at every warp count the rule
+    can give a cluster size (one column pair a thread, 32 w c >= nw, up
+    to 32 warps) and at counts that leave threads two or three pairs or
+    none: L = 1,024 (512 words) on 9 rows over 4 per-row digits,
+    bit-identical to the plain ladder on the card, one B4w launch a
+    call; the rule's own shape among them where it picks this cluster."""
+    rng = random.Random(1024 + cluster)
+    m = _odd(rng, 16384)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    xs, x = _b4w_rows(rng, [m], 9, 1024, cuda_device)
+    dig = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(16), 4, 4)
+                                    for _ in xs]), device=cuda_device)
+    want = tmont.mont_pow_digits_plain(ctx, x, dig, 4)
+    b, d = _b4w_operands(ctx, x, dig)
+    nw = mk.wide_words(1024)
+    warps = {1, 3, 8, 12, 32, -(-nw // (32 * cluster))}
+    for w in sorted(v for v in warps if 32 * v * cluster <= 2 * nw):
+        got, launches = _wide_launch(lambda: mk.launch_wide(
+            ctx, b, d, 4, (w, cluster)))
+        assert launches == (0, 1)
+        assert torch.equal(got, want), (w, cluster)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 8])
+def test_kernel_b4w_staged_table_on_cuda(cuda_device, cluster):
+    """The table in global memory (mode 1: L = 5,824, 2,912 words, at
+    window 4; L = 1,024 at window 8), each digit's entry staged into
+    shared memory by cp.async before its squarings, on one block a row
+    and on a cluster of 8: bit-identical to the plain ladder on 2 rows
+    over 3 per-row digits, 2 rows equal to pow."""
+    for bits, window in ((16 * 5824, 4), (16384, 8)):
+        rng = random.Random(bits + cluster)
+        m = _odd(rng, bits)
+        ctx = tmont.make_mont_ctx(m, device=cuda_device)
+        L = ctx.n_limbs
+        nw = mk.wide_words(L)
+        assert mk.wide_mode(nw, window) == 1
+        xs, x = _b4w_rows(rng, [m], 2, L, cuda_device)
+        es = [rng.getrandbits(3 * window) for _ in xs]
+        dig = torch.as_tensor(np.stack([exp_digits(e, window, 3)
+                                        for e in es]), device=cuda_device)
+        b, d = _b4w_operands(ctx, x, dig, window)
+        got, launches = _wide_launch(lambda: mk.launch_wide(
+            ctx, b, d, window, (-(-nw // (32 * cluster)) if cluster > 1
+                                else 32, cluster)))
+        assert launches == (0, 1)
+        assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig,
+                                                            window))
+        assert host.limbs_to_ints(got.cpu().numpy()) == [
+            pow(v, e, m) for v, e in zip(xs, es)]
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_per_row_moduli_on_a_cluster_on_cuda(cuda_device):
+    """Per-row moduli at 1,100 limbs (padded to 1,152: R^2 and the
+    Hensel-lifted n' rebuilt for the padded R, a row each) on clusters
+    of 2 and 4 blocks: bit-identical to the plain ladder on 5 rows."""
+    rng = random.Random(1101)
+    moduli = [_odd(rng, 16 * 1100) for _ in range(5)]
+    ctx = tmont.stack_mont_ctx(moduli, 1100, device=cuda_device)
+    xs, x = _b4w_rows(rng, moduli, 5, 1100, cuda_device)
+    dig = torch.as_tensor(np.stack([exp_digits(rng.getrandbits(16), 4, 4)
+                                    for _ in xs]), device=cuda_device)
+    want = tmont.mont_pow_digits_plain(ctx, x, dig, 4)
+    b, d = _b4w_operands(ctx, x, dig)
+    for cluster in (2, 4):
+        got, _ = _wide_launch(lambda: mk.launch_wide(
+            ctx, b, d, 4, (-(-576 // (32 * cluster)), cluster)))
+        assert torch.equal(got, want), cluster
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,rows", [(256, 5), (256, 64), (512, 5),
+                                    (512, 16), (768, 16), (768, 64)])
+def test_b4_or_b4w_by_the_rule_on_cuda(cuda_device, L, rows):
+    """mont_pow_b4 at B4's widths (L = 256, 512, 768) on 5 to 64 rows
+    launches the kernel that mont_kernel.variant names for the card's
+    SMs, once; its output equals the plain ladder's and that of the
+    other kernel (B4 through mont_kernel.launch at its lane rule, or B4w
+    through mont_pow_b4w)."""
+    rng = random.Random(L * rows)
+    m = _odd(rng, 16 * L)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    xs, x = _b4w_rows(rng, [m], rows, L, cuda_device)
+    dig = torch.as_tensor(exp_digits(rng.getrandbits(32), 4, 8),
+                          device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    kind = mk.variant(L, rows, sms)
+    got, launches = _wide_launch(lambda: mk.mont_pow_b4(ctx, x, dig, 4))
+    assert launches == ((1, 0) if kind == "B4" else (0, 1))
+    assert torch.equal(got, tmont.mont_pow_digits_plain(ctx, x, dig, 4))
+    b, d, _ = mk._operands(ctx, x, dig, 4, "B4")
+    reg = mk.launch(ctx, b, d, 4, mk.lanes_per_row(-(-L // 2), rows, sms))
+    wide = mk.mont_pow_b4w(ctx, x, dig, 4)
+    assert torch.equal(reg, got) and torch.equal(wide, got)
+
+
+@pytest.mark.cuda
+def test_kernel_b4w_refused_shape_raises(cuda_device):
+    """No fallback on a shape the kernel refuses: 33 warps a block, a
+    cluster of 3 blocks, a cluster in mode 2, each raises RuntimeError
+    ("kernel B4w launch failed") and counts no launch of either kernel;
+    nothing is written to the output of a good call made before."""
+    rng = random.Random(33)
+    m = _odd(rng, 16384)
+    ctx = tmont.make_mont_ctx(m, device=cuda_device)
+    _, x = _b4w_rows(rng, [m], 2, 1024, cuda_device)
+    b, d = _b4w_operands(ctx, x, [1, 2])
+    good = mk.launch_wide(ctx, b, d, 4)
+    for shape in ((33, 1), (8, 3), (0, 1)):
+        before = (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches)
+        with pytest.raises(RuntimeError, match="kernel B4w launch failed"):
+            mk.launch_wide(ctx, b, d, 4, shape)
+        assert (mk.mont_pow_b4.launches, mk.mont_pow_b4w.launches) == before
+    torch.cuda.synchronize()
+    assert torch.equal(good, tmont.mont_pow_digits_plain(ctx, x, d, 4))
 
 
 @pytest.mark.cuda

@@ -3,12 +3,15 @@
 ladder past kernel B4's 768 limbs) and the limb branches that the wide
 keys run, against the JAX package on the CPU.
 
-* B4w's launch rules as pure functions (the variant by width, the padded
-  words, the shared-memory bytes of a row, the rows of a block, the
-  switch of the table and then the operands to global memory), and its
-  Montgomery product and ladder emulated warp by warp on the
-  interleaved shared-memory layout, against Python integers and the
-  plain version.
+* B4w's launch rules as pure functions (the variant by width, rows and
+  SMs, the padded words, the shared-memory bytes of a row, the switch of
+  the table and then the operands to global memory, the warps, cluster
+  size and column pairs of a launch, the Hensel-lifted n' of a padded
+  R), and its three-product Montgomery multiply, normalisation,
+  carry-lookahead and ladder emulated thread by thread on its
+  shared-memory layout (clusters of blocks included), against Python
+  integers, the JAX package's ``pallas_kernels._mont_mul`` and the plain
+  version.
 * Threshold decryption's limb branches (``partial_decrypt_all``: one
   ``DeviceKey.pow_int`` a server; ``combine``'s limb product trees) at
   64- and 128-bit threshold keys, with ``rns2.MAX_MODULUS_BITS`` lowered
@@ -36,6 +39,7 @@ Tolerance: exact (limbs as uint32, values as ints).
 
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -113,212 +117,486 @@ def _limbs(vals, width):
 # ---------------------------------------------------------------------------
 
 def test_b4w_variant_and_padded_words():
-    """A CUDA call of mont_pow_b4 launches the register kernel B4 up to 768
-    limbs (n^3 of a 4096-bit key) and B4w past them; B4w pads a row to a
-    multiple of 32 words (a warp)."""
+    """A CUDA call of mont_pow_b4 launches B4w past 768 limbs (n^3 of a
+    4096-bit key) whatever the batch, and below them from 256 limbs on
+    where the batch has at most two rows an SM; B4 elsewhere (a batch
+    that fills the card: rows None).  B4w pads a row to a multiple of
+    32 words."""
     assert mk.REGISTER_MAX_LIMBS == 768
     assert [mk.variant(L) for L in (16, 512, 768, 769, 1024, 1536, 10 ** 5)
             ] == ["B4"] * 3 + ["B4w"] * 4
+    v = mk.variant
+    assert [v(L, 5, 132) for L in (128, 255, 256, 512, 768, 769)] == [
+        "B4", "B4", "B4w", "B4w", "B4w", "B4w"]
+    assert [v(768, rows, 132) for rows in (64, 264, 265, 4096)] == [
+        "B4w", "B4w", "B4", "B4"]
+    assert [v(128, rows, 132) for rows in (1, 64, 4096)] == ["B4"] * 3
+    assert [v(1024, rows, 132) for rows in (1, 4096, 10 ** 6)] == ["B4w"] * 3
     assert [mk.wide_words(L) for L in (769, 1024, 1100, 1536, 1537)] == [
         416, 512, 576, 768, 800]
 
 
 def test_b4w_shared_memory_rows_and_global_table():
-    """A row's shared bytes: 4 operands and the 2^w-entry table of nw
-    words (mode 0), the operands alone with the table in global memory
-    (mode 1), nothing (mode 2, all in global memory).  The table moves
-    out past 2,905 words at window 4 (92,960-bit moduli) and the
-    operands past 14,528 words; a block takes one row per SM first, then
-    as many rows as shared memory holds, at most 8."""
-    assert mk.wide_row_bytes(512, 4, 0) == 20 * 512 * 4 == 40960
-    assert mk.wide_row_bytes(512, 4, 1) == 4 * 512 * 4
-    assert mk.wide_row_bytes(512, 4, 2) == 0
+    """A row's block holds in shared memory its operands, product and
+    column words (14 nw + 224 words), the 2^w-entry table (mode 0) and
+    the segment flags; the table moves to global memory past 1,888 words
+    at window 4 (60,416-bit moduli, mode 1) and the rest past 4,064
+    (mode 2, one block a row).  The launch shape: the most cluster
+    blocks the card holds at once (from 768 words of a row on), and
+    the warps that give each thread one column pair."""
+    ops = 14 * 512 + 224
+    seg = 3 * (512 // 16 + 8)
+    assert mk.wide_row_bytes(512, 4, 0) == 4 * (ops + 16 * 512 + seg)
+    assert mk.wide_row_bytes(512, 4, 1) == 4 * (ops + seg)
+    assert mk.wide_row_bytes(512, 4, 2) == 4 * seg
+    assert mk.wide_scratch_words(512, 4, 1) == 16 * 512
+    assert mk.wide_scratch_words(512, 4, 2) == ops + 16 * 512
     modes = {(nw, w): mk.wide_mode(nw, w) for nw, w in (
-        (416, 4), (512, 4), (768, 4), (2880, 4), (2912, 4), (14528, 4),
-        (14560, 4), (192, 8), (224, 8), (14528, 1), (14560, 1))}
-    assert modes == {(416, 4): 0, (512, 4): 0, (768, 4): 0, (2880, 4): 0,
-                     (2912, 4): 1, (14528, 4): 1, (14560, 4): 2, (192, 8): 0,
-                     (224, 8): 1, (14528, 1): 1, (14560, 1): 2}
-    for nw in (512, 768, 2880):
-        assert mk.wide_row_bytes(nw, 4, 0) <= mk.SMEM_MAX
-    assert mk.wide_row_bytes(2912, 4, 0) > mk.SMEM_MAX
-    assert mk.wide_row_bytes(14528, 4, 1) <= mk.SMEM_MAX < \
-        mk.wide_row_bytes(14560, 4, 1)
-    rows = mk.wide_rows_per_block
-    assert [rows(b, 40960, 132) for b in (1, 16, 64, 132, 264, 4096)] == [
-        1, 1, 1, 1, 2, 5]
-    assert [rows(b, 61440, 132) for b in (16, 4096)] == [1, 3]
-    assert [rows(b, 0, 132) for b in (2, 4096, 10 ** 6)] == [1, 8, 8]
-    assert rows(4096, mk.wide_row_bytes(2880, 4, 0), 132) == 1
+        (416, 4), (768, 4), (1888, 4), (1920, 4), (2912, 4), (4064, 4),
+        (4096, 4), (192, 8), (224, 8), (4064, 1), (4096, 1))}
+    assert modes == {(416, 4): 0, (768, 4): 0, (1888, 4): 0, (1920, 4): 1,
+                     (2912, 4): 1, (4064, 4): 1, (4096, 4): 2, (192, 8): 0,
+                     (224, 8): 1, (4064, 1): 1, (4096, 1): 2}
+    assert mk.wide_row_bytes(1888, 4, 0) <= mk.SMEM_MAX < \
+        mk.wide_row_bytes(1920, 4, 0)
+    shape = mk.wide_shape
+    for nw, rows in ((512, 64), (768, 16), (576, 16), (2912, 2), (128, 5),
+                     (384, 1024), (14560, 1)):
+        warps, cluster = shape(nw, rows, 132)
+        assert cluster in mk.WIDE_CLUSTERS
+        assert 1 <= warps <= mk.WIDE_MAX_WARPS
+        assert rows * cluster <= 132 or cluster == 1
+        assert 32 * warps * cluster >= min(nw, 32 * mk.WIDE_MAX_WARPS)
+        if mk.wide_mode(nw, 4) == 2 or nw < mk.WIDE_CLUSTER_FROM:
+            assert cluster == 1
+    assert [shape(768, rows, 132) for rows in (16, 64, 1024)] == [
+        (8, 4), (12, 2), (24, 1)]
+    assert [shape(nw, 64, 132) for nw in (128, 384, 512)] == [
+        (8, 1), (12, 1), (16, 1)]
+    assert shape(2912, 2, 132) == (12, 8)
+    assert shape(14560, 1, 132) == (32, 1)
+
+
+def test_b4w_hensel_nprime_and_padded_context():
+    """B4w's n' = -n^-1 mod 2^(32 nw) for the padded R, lifted from the
+    context's -n^-1 mod 2^(16 L) (x (2 + n x) doubles the bits that
+    hold), equals pow's inverse; the padded context (n with zero limbs,
+    R^2 mod n for the padded R) too, shared and per row."""
+    rng = random.Random(0x4E5)
+    for bits, target in ((16, 32), (16 * 769, 32 * 416),
+                         (16 * 1100, 32 * 576), (64, 4096)):
+        n = rng.getrandbits(bits) | 1 | 1 << (bits - 1)
+        x = (-pow(n, -1, 1 << bits)) % (1 << bits)
+        assert mk.hensel_nprime(n, x, bits, target) == \
+            (-pow(n, -1, 1 << target)) % (1 << target)
+    moduli = [rng.getrandbits(16 * 37) | 1 | 1 << (16 * 37 - 1)
+              for _ in range(3)]
+    nw = mk.wide_words(37)
+    R = 1 << (32 * nw)
+    for ctx, mods in ((tmont.make_mont_ctx(moduli[0], device=CPU),
+                       moduli[:1]),
+                      (tmont.stack_mont_ctx(moduli, 37, device=CPU), moduli)):
+        n, nprime, r2 = (host.limbs_to_ints(f.reshape(-1, 2 * nw).numpy()
+                                            .astype(np.uint32))
+                         for f in mk._wide_ctx(ctx, nw))
+        assert n == mods
+        assert nprime == [(-pow(m, -1, R)) % R for m in mods]
+        assert r2 == [R * R % m for m in mods]
 
 
 # ---------------------------------------------------------------------------
-# B4w's arithmetic, warp by warp, on its shared-memory layout
+# B4w's arithmetic, thread by thread, on its shared-memory layout
 # ---------------------------------------------------------------------------
 
-def _lookahead(gen, prop):
-    G = sum(1 << i for i, g in enumerate(gen) if g)
-    P = sum(1 << i for i, p in enumerate(prop) if p)
-    c = ((G | P) + G) ^ (G | P) ^ G
+PAD = mk.WIDE_PAD
+
+
+class _B4wRow:
+    """limb_modexp_wide.cu's arithmetic on one row, thread by thread: the
+    row's G = 32 w c threads (c blocks of a cluster, each with its own
+    copy of every shared array, and global arrays that all see).  The
+    phases between two barriers run one after the other, and every write
+    of a phase lands at the barrier that closes it, so a value passed
+    between threads without a barrier between would read stale and show
+    as a wrong result.  product() (the column pairs, one at a time, and
+    the chunk of each warp's switch), normalise() (the segments'
+    ballots, warp 0's resolve in each block, the final words), cond_sub()
+    and mont_mul()
+    follow the kernel line by line; the kernel's bounds (three-word
+    sums, indices within the operand, a word's 0/1 carry) are
+    asserted."""
+
+    def __init__(self, nw, warps, cluster):
+        assert nw % LANES == 0
+        self.nw, self.T, self.c = nw, LANES * warps, cluster
+        self.G = self.T * cluster
+        self.blocks = [{} for _ in range(cluster)]
+        self.glob = {}
+        self.pending = []
+        ns = nw // 16 + 8
+        for name, size in (("n", nw), ("np", nw), ("acc", nw), ("x", nw),
+                           ("y", nw), ("m", nw), ("t", 2 * nw + 32),
+                           ("sg", ns), ("sp", ns), ("sc", ns)):
+            self.alloc(name, size)
+        for name in ("c0", "c1", "c2"):   # positions -PAD .. 2 nw + PAD
+            self.alloc(name, 2 * nw + 2 * PAD)
+
+    def alloc(self, name, size, glob=False):
+        if glob:
+            self.glob[name] = [0] * size
+        else:
+            for blk in self.blocks:
+                blk[name] = [0] * size
+
+    @staticmethod
+    def _at(ref, i):
+        """an operand (a name, or (name, offset): a table entry) and its
+        word i -> (array, index)"""
+        name, off = (ref, 0) if isinstance(ref, str) else ref
+        return name, i + off + (PAD if name in ("c0", "c1", "c2") else 0)
+
+    def get(self, rank, ref, i):
+        name, j = self._at(ref, i)
+        if name in self.glob:
+            return self.glob[name][j]
+        return self.blocks[rank][name][j]
+
+    def put_all(self, ref, i, v):
+        """put_all: every block's copy (or the global array, once)"""
+        assert 0 <= v <= M32
+        self.pending.append((None, *self._at(ref, i), v))
+
+    def put_local(self, rank, ref, i, v):
+        assert 0 <= v <= M32
+        self.pending.append((rank, *self._at(ref, i), v))
+
+    def sync(self):
+        for rank, name, i, v in self.pending:
+            if name in self.glob:
+                self.glob[name][i] = v
+            for r, blk in enumerate(self.blocks):
+                if name in blk and (rank is None or rank == r):
+                    blk[name][i] = v
+        self.pending = []
+
+    def threads(self):
+        for g in range(self.G):
+            yield g, g // self.T, g % LANES, (g % self.T) // LANES
+
+    def store(self, name, v, width=None):
+        for i in range(width or self.nw):
+            self.put_all(name, i, (v >> (32 * i)) & M32)
+        self.sync()
+
+    def load(self, name, rank=0, width=None):
+        return sum(self.get(rank, name, i) << (32 * i)
+                   for i in range(width or self.nw))
+
+    # -- the kernel's functions ---------------------------------------
+    def product(self, a, b, init, low):
+        nw, G = self.nw, self.G
+        for g, rank, lane, _ in self.threads():
+            A = lambda i: self.get(rank, a, i)  # noqa: E731
+
+            def B(i):
+                assert 0 <= i < nw
+                return self.get(rank, b, i)
+
+            for k0 in range(g - lane, nw, G):        # one pair at a time
+                k = k0 + lane
+                acc = self.get(rank, init, k) if init else 0
+                lo = None
+                for q in range(k0 // LANES + 1 if low else nw // LANES):
+                    i0 = q * LANES
+                    for u in range(LANES):
+                        if i0 != k0:
+                            off = nw if i0 > k0 else 0
+                        else:                         # the switch chunk
+                            off = nw if u > lane else 0
+                        acc += A(i0 + u) * B(k - i0 - u + off)
+                        if i0 == k0 and u == lane:
+                            lo = acc
+                            acc = (self.get(rank, init, k + nw) if init
+                                   else 0)
+                pairs = [(k, lo)] + ([] if low else [(k + nw, acc)])
+                for pos, v in pairs:
+                    assert v < 1 << 96
+                    for w, name in enumerate(("c0", "c1", "c2")):
+                        self.put_all(name, pos, (v >> (32 * w)) & M32)
+
+    def resolve(self, ns):
+        for rank in range(self.c):
+            carry = 0
+            for b0 in range(0, ns, LANES):
+                gs, ps = [], []
+                for lane in range(LANES):
+                    j = b0 + lane
+                    gm = self.get(rank, "sg", j) if j < ns else 0
+                    pm = self.get(rank, "sp", j) if j < ns else 0
+                    gs.append(((gm | pm) + gm) >> 32 & 1)
+                    ps.append(pm == M32)
+                cin, _ = _lookahead(gs, ps, carry)
+                for lane in range(LANES):
+                    if b0 + lane < ns:
+                        self.put_local(rank, "sc", b0 + lane, cin[lane])
+                # out of segment ns - 1: the carry into the next bit
+                G, P = _ballot(gs), _ballot(ps)
+                c = ((G | P) + G + carry) ^ (G | P) ^ G
+                carry = c >> min(LANES, ns - b0) & 1
+            self.put_local(rank, "sc", ns, carry)
+        self.sync()                                   # __syncthreads
+
+    def seg_bit(self, rank, s, lane):
+        gm, pm = self.get(rank, "sg", s), self.get(rank, "sp", s)
+        c = ((gm | pm) + gm + self.get(rank, "sc", s)) ^ (gm | pm) ^ gm
+        return c >> lane & 1
+
+    def warps(self, P):
+        """(rank, warp base position) of every warp's 32-position segment
+        of 0 .. P - 1: position p is thread p mod G's"""
+        for rank in range(self.c):
+            for w in range(self.T // LANES):
+                wb = rank * self.T + w * LANES
+                for pb in range(wb, P, self.G):
+                    yield rank, pb
+
+    def normalise(self, P, out, keep):
+        for rank, pb in self.warps(P):
+            c = lambda name, p: self.get(rank, name, p)  # noqa: E731
+            gen, prop = [], []
+            for lane in range(LANES):
+                p = pb + lane
+                if p >= P:
+                    gen.append(0)
+                    prop.append(0)
+                    continue
+                xp = c("c0", p) + c("c1", p - 1) + c("c2", p - 2)
+                xq = c("c0", p - 1) + c("c1", p - 2) + c("c2", p - 3)
+                y = (xp & M32) + (xq >> 32)
+                assert y < (1 << 32) + 3
+                gen.append(y >> 32 != 0)
+                prop.append(y & M32 == M32)
+                self.put_local(rank, out, p, y & M32)
+            self.put_all("sg", pb // LANES, _ballot(gen))
+            self.put_all("sp", pb // LANES, _ballot(prop))
+        self.sync()
+        self.resolve(-(-P // LANES))
+        for rank, pb in self.warps(P):
+            for lane in range(LANES):
+                p = pb + lane
+                if keep <= p < P:
+                    w = self.get(rank, out, p) + self.seg_bit(
+                        rank, pb // LANES, lane)
+                    self.put_all(out, p, w & M32)
+        self.sync()
+
+    def cond_sub(self, out, out2):
+        nw = self.nw
+        for rank, pb in self.warps(nw):
+            u = [self.get(rank, "t", nw + pb + lane) for lane in range(LANES)]
+            v = [self.get(rank, "n", pb + lane) for lane in range(LANES)]
+            self.put_all("sg", pb // LANES, _ballot(
+                [x < y for x, y in zip(u, v)]))
+            self.put_all("sp", pb // LANES, _ballot(
+                [x == y for x, y in zip(u, v)]))
+        self.sync()
+        ns = nw // LANES
+        self.resolve(ns)
+        for rank, pb in self.warps(nw):
+            sub = (self.get(rank, "t", 2 * nw) != 0
+                   or self.get(rank, "sc", ns) == 0)
+            for lane in range(LANES):
+                p = pb + lane
+                u = self.get(rank, "t", nw + p)
+                w = ((u - self.get(rank, "n", p) - self.seg_bit(
+                    rank, pb // LANES, lane)) % (1 << 32) if sub else u)
+                self.put_all(out, p, w)
+                if out2 is not None:
+                    self.put_all(out2, p, w)   # shared: all; global: once
+        self.sync()
+
+    def mont_mul(self, a, b, out, out2=None):
+        nw = self.nw
+        for pas in range(3):
+            pa = (a, "t", "m")[pas]
+            pb = (b, "np", "n")[pas]
+            self.product(pa, pb, "t" if pas == 2 else None, pas == 1)
+            self.sync()
+            self.normalise(nw if pas == 1 else 2 * nw + 1,
+                           "m" if pas == 1 else "t", nw if pas == 2 else 0)
+        self.cond_sub(out, out2)
+
+
+def _ballot(bits):
+    return sum(1 << i for i, b in enumerate(bits) if b)
+
+
+def _lookahead(gen, prop, cin=0):
+    """Carries into each of 32 positions, and out of the last, from the
+    positions' generate / propagate bits (never both) and a carry-in:
+    the kernel's ((G | P) + G + cin) ^ (G | P) ^ G."""
+    G, P = _ballot(gen), _ballot(prop)
+    c = ((G | P) + G + cin) ^ (G | P) ^ G
     return [(c >> i) & 1 for i in range(LANES)], (c >> LANES) & 1
 
 
-def _warp_mont_mul(mem, a, b, n, t, out, W, k0):
-    """limb_modexp_wide.cu's mont_mul on a flat word list ``mem``: each
-    argument is an operand's offset, lane l's word w at [off + w * 32 + l]
-    (interleaved), the 32 lanes stepped in lockstep, shuffles reading the
-    values of the step before its writes.  Checks the kernel's bounds."""
-    def at(off, w, lane):
-        return off + w * LANES + lane
-
-    for lane in range(LANES):
-        for w in range(W):
-            mem[at(t, w, lane)] = 0
-    a0 = [mem[at(a, 0, lane)] for lane in range(LANES)]
-    n0w = [mem[at(n, 0, lane)] for lane in range(LANES)]
-    cy, tx = [0] * LANES, 0
-    for src in range(LANES):
-        for wb in range(W):
-            bi = mem[at(b, wb, src)]                       # __shfl_sync
-            t0 = [mem[at(t, 0, lane)] for lane in range(LANES)]
-            m = ((t0[0] + a0[0] * bi) * k0) & M32          # from lane 0
-            u0, co = [0] * LANES, [0] * LANES
-            for lane in range(LANES):                      # word_step
-                p = a0[lane] * bi + t0[lane] + cy[lane]
-                c1 = p >> 32
-                q = m * n0w[lane] + (p & M32)
-                c2 = q >> 32
-                u0[lane] = q & M32
-                for w in range(1, W):
-                    p = mem[at(a, w, lane)] * bi + mem[at(t, w, lane)] + c1
-                    c1 = p >> 32
-                    q = m * mem[at(n, w, lane)] + (p & M32) + c2
-                    c2 = q >> 32
-                    assert p < 1 << 64 and q < 1 << 64
-                    mem[at(t, w - 1, lane)] = q & M32
-                co[lane] = c1 + c2
-            assert u0[0] == 0
-            new_cy = [0] * LANES
-            for lane in range(LANES):
-                top = lane == LANES - 1
-                s = (tx if top else u0[lane + 1]) + co[lane]   # shfl_down
-                mem[at(t, W - 1, lane)] = s & M32
-                if top:
-                    tx = s >> 32
-                if lane:
-                    new_cy[lane] = (u0[lane] + co[lane - 1]) >> 32  # shfl_up
-            cy = new_cy
-            assert max(cy) <= 2 and tx <= 1
-    gen, prop = [], []
-    for lane in range(LANES):
-        c, ones = cy[lane], True
-        for w in range(W):
-            v = mem[at(t, w, lane)] + c
-            mem[at(t, w, lane)], c = v & M32, v >> 32
-            ones = ones and v & M32 == M32
-        gen.append(c != 0)
-        prop.append(ones)
-    cin, cout = _lookahead(gen, prop)
-    tx += cout
-    gen, prop = [], []
-    for lane in range(LANES):
-        c, bw, zero = cin[lane], 0, True
-        for w in range(W):
-            v = mem[at(t, w, lane)] + c
-            mem[at(t, w, lane)], c = v & M32, v >> 32
-            d = (v & M32) - mem[at(n, w, lane)] - bw
-            bw = 1 if d < 0 else 0
-            zero = zero and d % (1 << 32) == 0
-        gen.append(bw != 0)
-        prop.append(zero)
-    bin_, bout = _lookahead(gen, prop)
-    sub = tx != 0 or bout == 0
-    for lane in range(LANES):
-        bw = bin_[lane]
-        for w in range(W):
-            tw = mem[at(t, w, lane)]
-            if sub:
-                d = tw - mem[at(n, w, lane)] - bw
-                bw = 1 if d < 0 else 0
-                mem[at(out, w, lane)] = d % (1 << 32)
-            else:
-                mem[at(out, w, lane)] = tw
-
-
-def _store(mem, off, v, W):
-    """Value v into an operand: logical word l W + w at [off + w 32 + l]."""
-    for lane in range(LANES):
-        for w in range(W):
-            mem[off + w * LANES + lane] = (v >> (32 * (lane * W + w))) & M32
-
-
-def _load(mem, off, W):
-    return sum(mem[off + w * LANES + lane] << (32 * (lane * W + w))
-               for lane in range(LANES) for w in range(W))
-
-
-@pytest.mark.parametrize("W", [1, 2, 3])
-def test_b4w_warp_arithmetic(W):
-    """B4w's Montgomery product at W words a lane (nw = 32 W), emulated on
-    its interleaved layout, including the in-place shift of t and the
-    aliasing of out with a and b: a b R^-1 mod n for random operands,
-    all-ones words, a < R, and moduli just below 2^(32 nw)."""
-    nw = LANES * W
+def _row(nw, warps, cluster, n):
+    row = _B4wRow(nw, warps, cluster)
     R = 1 << (32 * nw)
-    rng = random.Random(W)
+    row.store("n", n)
+    row.store("np", (-pow(n, -1, R)) % R)
+    return row
+
+
+_JAX_MONT = {}
+
+
+def _jax_mont_mul(a, b, n, nw):
+    """pallas_kernels._mont_mul at R = 2^(32 nw) (2 nw 16-bit limbs), on
+    rows of (a, b): the TPU kernel's product."""
+    from paillier_tpu.bigint import pallas_kernels as jpk
+    L = 2 * nw
+    fn = _JAX_MONT.setdefault(L, jax.jit(jpk._mont_mul))
+    R = 1 << (16 * L)
+
+    def lj(vals):
+        return jnp.asarray(host.ints_to_limbs(vals, L).astype(np.uint32))
+
+    out = fn(lj(a), lj(b), lj([n] * len(a)),
+             lj([(-pow(n, -1, R)) % R] * len(a)))
+    return host.limbs_to_ints(np.asarray(out))
+
+
+@pytest.mark.parametrize("nw,warps,cluster", [
+    (64, 1, 1), (64, 2, 1), (96, 2, 1), (96, 4, 1), (160, 4, 1),
+    (96, 1, 2), (128, 1, 4), (64, 2, 2)])
+def test_b4w_block_arithmetic(nw, warps, cluster):
+    """B4w's Montgomery product (products A, B, C, normalisation, the
+    conditional subtract) emulated thread by thread at 1, 2 and 4 warps,
+    at nw = 96 and 160, which 64 and 128 threads do not divide (a thread
+    takes 1 to 3 column pairs, a warp's last pair may be past nw and is
+    not formed), on clusters of 2 and 4 blocks (each block's slice of the
+    columns written into every block's copy): a b R^-1 mod n for random
+    operands, a
+    = R - 1, n - 1, 0, the aliasing of out with a (and with a and b: a
+    squaring), on moduli just below R and a random one; equal to Python
+    integers, to the JAX package's pallas_kernels._mont_mul at the same
+    R (nw 64 and 96), and every block ends with the same words."""
+    R = 1 << (32 * nw)
+    rng = random.Random(nw * 100 + warps * 10 + cluster)
     moduli = [rng.getrandbits(32 * nw) | 1 | 1 << (32 * nw - 1), R - 1,
-              R - 3, R - (1 << (16 * nw)) + 1, (R >> 1) + 1]
-    A, B, N, T = 0, nw, 2 * nw, 3 * nw
+              R - 3, R - (1 << (16 * nw)) + 1]
+    cases, got = [], []
     for n in moduli:
-        k0 = (-pow(n, -1, 1 << 32)) % (1 << 32)
+        row = _row(nw, warps, cluster, n)
+        rinv = pow(R, -1, n)
         for a, b in [(rng.randrange(n), rng.randrange(n)), (n - 1, n - 1),
-                     (R - 1, n - 1), (R - 1, rng.randrange(n)), (0, n - 1),
-                     (rng.randrange(R), 1)]:
-            want = a * b * pow(R, -1, n) % n
-            mem = [0] * (4 * nw)
-            _store(mem, A, a, W)
-            _store(mem, B, b, W)
-            _store(mem, N, n, W)
-            _warp_mont_mul(mem, A, B, N, T, A, W, k0)     # out aliases a
-            assert _load(mem, A, W) == want, (n, a, b)
-            _store(mem, A, b, W)
-            _warp_mont_mul(mem, A, A, N, T, A, W, k0)     # squaring
-            assert _load(mem, A, W) == b * b * pow(R, -1, n) % n
+                     (R - 1, n - 1), (R - 1, rng.randrange(n)), (0, n - 1)]:
+            row.store("acc", a)
+            row.store("x", b)
+            row.mont_mul("acc", "x", "acc")               # out aliases a
+            want = a * b * rinv % n
+            assert [row.load("acc", r) for r in range(cluster)] == \
+                [want] * cluster, (n, a, b)
+            cases.append((a, b, n))
+            got.append(want)
+        v = rng.randrange(n)
+        row.store("acc", v)
+        row.mont_mul("acc", "acc", "acc")                  # a squaring
+        assert row.load("acc", cluster - 1) == v * v * rinv % n
+    if nw <= 96 and (warps, cluster) in ((1, 1), (2, 1)):
+        for n in moduli:
+            sel = [(a, b) for a, b, m in cases if m == n]
+            want = [g for (a, b, m), g in zip(cases, got) if m == n]
+            assert _jax_mont_mul([a for a, _ in sel], [b for _, b in sel],
+                                 n, nw) == want
 
 
-def test_b4w_warp_ladder():
-    """The kernel's whole ladder (the table at [4 nw], entry v at
-    [4 nw + v nw], acc = table[0], window squarings and table[d] * acc a
-    digit, the exit by 1) emulated at W = 1 with window 2, on a padded
-    modulus (R^2 rebuilt for the padded R, as the wrapper does): equal
-    to pow and to the plain ladder."""
-    W, window = 1, 2
-    nw = LANES * W
-    rng = random.Random(0xB4)
+@pytest.mark.parametrize("warps,cluster", [(1, 1), (2, 2)])
+def test_b4w_block_lookahead(warps, cluster):
+    """The normalisation's carries: column sums whose words run all-ones
+    across whole segments, warps and blocks, with a carry generated at
+    the bottom (it must ripple through 120 positions), a 3-word column
+    at every position, and random ones; the 0/1 carries by segment
+    ballots, warp 0's segment resolution and each lane's carry-in equal
+    Python's sums, at P = 2 nw + 1 (into t) and mod R (P = nw, into m)."""
+    nw = 64
+    rng = random.Random(warps + cluster)
+    row = _B4wRow(nw, warps, cluster)
+    patterns = [
+        [(M32, 0, 0)] * (2 * nw - 1) + [(2, 0, 0)],          # no carry
+        [(M32, 0, 0)] * 120 + [(0, 0, 0)] * (2 * nw - 120),
+        [(M32, M32, nw)] * (2 * nw - 3) + [(0, 0, 0)] * 3,
+        [(rng.getrandbits(32), rng.getrandbits(32), rng.randrange(nw))
+         for _ in range(2 * nw - 3)] + [(0, 0, 0)] * 3]
+    patterns[1][0] = (M32, 1, 0)            # 2^32 + (2^32 - 1): a carry
+    for cols in patterns:
+        value = sum((x + (y << 32) + (z << 64)) << (32 * p)
+                    for p, (x, y, z) in enumerate(cols))
+        for p, vals in enumerate(cols):
+            for name, v in zip(("c0", "c1", "c2"), vals):
+                row.put_all(name, p, v)
+        row.sync()
+        for P, out, want in ((2 * nw + 1, "t", value),
+                             (nw, "m", value % (1 << (32 * nw)))):
+            row.normalise(P, out, 0)
+            for r in range(cluster):
+                assert row.load(out, r, P) == want
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_b4w_block_ladder(mode):
+    """The kernel's whole ladder at window 2, emulated: bm = base R^2 R^-1
+    and 1_M (in mode 0 into the table in shared memory; in mode 1 into y
+    and acc with the table's copy in global memory, written by each
+    word's owner), the table built (mode 1: in x from y), per digit two
+    squarings and the table entry times acc (mode 1: the entry staged
+    from global memory into y), the exit by 1; on a padded modulus (R^2
+    and n' for the padded R, as the wrapper gives them), at 2 warps and a
+    cluster of 2: equal to pow and to the plain ladder."""
+    nw, window = 64, 2
+    TT = 1 << window
+    rng = random.Random(0xB4 + mode)
     n = rng.getrandbits(32 * nw - 40) | 1 | 1 << (32 * nw - 41)
     R = 1 << (32 * nw)
-    k0 = (-pow(n, -1, 1 << 32)) % (1 << 32)
-    N, T, ACC, X, TAB = 0, nw, 2 * nw, 3 * nw, 4 * nw
+    row = _row(nw, 2, 2, n)
+    row.alloc("tab", TT * nw, glob=mode == 1)
     x, e = rng.randrange(n), rng.getrandbits(14) | 1 << 13
     digits = tmont.exp_digits(e, window, 7)
-    mem = [0] * ((4 + (1 << window)) * nw)
-    _store(mem, N, n, W)
-    _store(mem, ACC, x, W)
-    _store(mem, X, R * R % n, W)
-    mm = lambda a, b, out: _warp_mont_mul(mem, a, b, N, T, out, W, k0)
-    mm(ACC, X, TAB + nw)
-    _store(mem, ACC, 1, W)
-    mm(ACC, X, TAB)
-    _store(mem, ACC, _load(mem, TAB, W), W)
-    for v in range(2, 1 << window):
-        mm(TAB + (v - 1) * nw, TAB + nw, TAB + v * nw)
+    row.store("acc", x)
+    row.store("x", R * R % n)
+    mm = row.mont_mul
+
+    def entry(v):
+        return ("tab", v * nw)
+
+    if mode == 0:
+        mm("acc", "x", entry(1))
+        row.store("acc", 1)
+        mm("acc", "x", "acc", entry(0))
+        for v in range(2, TT):
+            mm(entry(v - 1), entry(1), entry(v))
+    else:
+        mm("acc", "x", "y", entry(1))
+        row.store("acc", 1)
+        mm("acc", "x", "acc", entry(0))
+        for v in range(2, TT):
+            mm("y" if v == 2 else "x", "y", "x", entry(v))
+    assert [row.get(1, "tab", i) for i in range(nw)] == [
+        (R % n) >> (32 * i) & M32 for i in range(nw)]
     for d in digits:
         for _ in range(window):
-            mm(ACC, ACC, ACC)
-        mm(TAB + int(d) * nw, ACC, ACC)
-    _store(mem, X, 1, W)
-    mm(ACC, X, ACC)
-    assert _load(mem, ACC, W) == pow(x, e, n)
+            mm("acc", "acc", "acc")
+        if mode == 0:
+            mm(entry(int(d)), "acc", "acc")
+        else:
+            for i in range(nw):                  # the cp.async staging
+                row.put_all("y", i, row.get(0, entry(int(d)), i))
+            row.sync()
+            mm("y", "acc", "acc")
+    row.store("x", 1)
+    mm("acc", "x", "acc")
+    assert row.load("acc", 1) == pow(x, e, n)
     ctx = tmont.make_mont_ctx(n, device=CPU)
     got = tmont.mont_pow_digits_plain(
         ctx, _limbs([x], ctx.n_limbs), digits, window)
