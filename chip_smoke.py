@@ -189,7 +189,23 @@ non-zero):
                 card's busy share in each window (the union of its kernel
                 intervals over the window's span), the 5 kernels with
                 most device time, and the count of B1-B4 kernel events,
-                which must equal the launch counters (B1 12, B2 9, B4 1).
+                which must equal the launch counters (B1 12, B2 9, B4 1);
+                the port's spans, which the trace carries: as many as
+                profiling.take() holds, and no B1 kernel event starting
+                before the B1 ``ladder`` span of its launch opened (the
+                count of those, the median and largest lag); then, in a
+                fresh spawned process, a phase-4 encrypt + CRT decrypt
+                under a profiler of CUDA activity alone, as the
+                benchmark's harness runs it (a marker on a synchronised
+                card first): it records the
+                spans (an encrypt and a decrypt root), B1 3, no B1 kernel
+                before its span, and the spans' anchor (the offset
+                between the host's perf_counter_ns and the device events'
+                clock) inside the bracket of 20 markers that end the
+                window (each kernel starts after its launch is issued and
+                ends before synchronize() returns); the offset of the
+                first marker, as the benchmark's harness measures it, is
+                printed beside it.
  15. wide    -- kernel B4w (a block, or a cluster of blocks, a row):
                 through mont_pow_b4 against its plain version over 32
                 digits on 64 rows at L = 1,024 and 1,536, 16 rows of
@@ -224,7 +240,8 @@ decryption B1 3, combine B2 1, the proofs B1 3 and B2 35; phase 11:
 the serial chunk B1 9, B2 9, 1 limb (L = 128: B4), the checks B1 15,
 B2 14, 2 limb, the pipeline B1 18, B2 18, 2 limb; phase 12: each
 rank's, above, and none in this process; phase 13: B1 2, 5 limb
-(L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb (B4); phase 15:
+(L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb (B4), then B1
+3; phase 15:
 the 8192-bit key B1 2, 4 limb (B4w), the forced limb branches 6 limb
 (512 and 1,536 rows: B4), the verification keys 1 (B4w)),
 and phase 9 fails unless every probe kernel launched.
@@ -263,6 +280,7 @@ DD_CHUNK = 128         # bench.py's ddleq configuration: proofs a chunk,
 DD_SECPAR = 40         # instances a proof,
 DD_CHUNKS = 2          # and chunks (256 proofs) in its pipeline
 DD_ROWS = DD_CHUNK * DD_SECPAR
+MARKERS = 20           # phase 14's markers bracketing the clocks' offset
 # a phase-12 rank's launches (B1, B2, B3, B4) in dryrun_multichip(2)
 DRYRUN_LAUNCHES = [20, 34, 0, 2]
 L4_BITS = 4096         # the limb route's key: level 2 (n^3) past the RNS
@@ -329,6 +347,52 @@ def ptxas_report(log: str) -> list[str]:
         elif "registers" in ln or "spill" in ln:
             out.append(f"{name} {ln.split(':', 1)[-1].strip()}")
     return out
+
+
+def gate_window(p: dict) -> dict:
+    """Phase 14's CUDA-only window, in a fresh process as the benchmark's
+    harness runs one: the process's first profiler, a marker on a
+    synchronised card, one encrypt + CRT decrypt of ``p``'s batch, then
+    MARKERS markers that end the window.  Returns the results' check, the
+    B1 launches, the span record, the device events (start, end, name in
+    ns) and the markers' host times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from paillier_tpu_torch import Decryptor, Encryptor
+    from paillier_tpu_torch.bigint import sliding_kernel
+    from paillier_tpu_torch.ops import profiling
+    dev = torch.device("cuda:0")
+    enc = Encryptor(p["sk"].public(), device=dev)
+    dec = Decryptor(p["sk"], crt=True, device=dev)
+    ms, rs = p["ms"], p["rs"]
+    warm = dec.decrypt(enc.encrypt(ms, rs)) == ms
+    bump = torch.ones(1, device=dev)
+    b1 = sliding_kernel.rns2_pow_sliding_b1.launches
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    torch.cuda.synchronize()
+    marker_ns = time.perf_counter_ns()
+    torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    out = dec.decrypt(enc.encrypt(ms, rs))
+    # markers that bracket the clocks' offset: a kernel starts after its
+    # launch was issued and ends before synchronize() returns
+    torch.cuda.synchronize()
+    issued = []
+    for _ in range(MARKERS):
+        t_issue = time.perf_counter_ns()
+        bump.add_(1)
+        torch.cuda.synchronize()
+        issued.append((t_issue, time.perf_counter_ns()))
+    prof.__exit__(None, None, None)
+    return {"ok": warm and out == ms,
+            "b1": sliding_kernel.rns2_pow_sliding_b1.launches - b1,
+            "rec": profiling.take(), "marker_ns": marker_ns,
+            "issued": issued, "ev": sorted(
+                (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if "CUDA" in str(e.device_type()))}
 
 
 def parallel_rank(rank: int, world: int, p: dict) -> dict:
@@ -2053,6 +2117,22 @@ def main() -> None:
           f"({time.perf_counter() - t0:.1f} s in all)")
 
     # -- 14. trace: the card's busy share under torch.profiler -------------
+    def span_lags(name, opened, started, per_us, want, names):
+        """The k-th B1 kernel start after the k-th B1 ladder span opened
+        (times in units of 1 / per_us us): fail on a kernel that starts
+        first, or on other than ``want`` of each."""
+        if len(opened) != want or len(started) != want:
+            fail(f"{name}: {len(opened)} B1 ladder spans, {len(started)} B1 "
+                 f"kernel events, expected {want}")
+        lags = sorted((k - s) / per_us for k, s in zip(started, opened))
+        early = sum(lag < 0 for lag in lags)
+        phase("trace", f"{name}: spans {names}; B1 kernels starting before "
+              f"their ladder span opened: {early} of {len(lags)}; lag "
+              f"median {lags[len(lags) // 2]:.1f} us, largest "
+              f"{lags[-1]:.1f} us")
+        if early:
+            fail(f"{name}: {early} B1 kernels start before their span")
+
     t0 = time.perf_counter()
     trace_dir = os.path.join(here, "build", "trace")
     windows = ("phase-4 encrypt + CRT decrypt", "phase-11 serial chunk")
@@ -2125,7 +2205,60 @@ def main() -> None:
               f"counters; {len(kern)} kernels, {len(events)} events, "
               f"{mb:.1f} MB, parsed in {time.perf_counter() - t_parse:.1f} s "
               f"({time.perf_counter() - t0:.1f} s in all)")
+        # the port's spans, on the trace's clock
+        held = profiling.take()["spans"]
+        mine = [e for e in events if e.get("ph") == "X"
+                and e.get("cat") == "paillier_span"]
+        if len(mine) != len(held):
+            fail(f"the trace holds {len(mine)} spans, take() {len(held)}")
+        opened = sorted(e["ts"] for e in mine if e["name"] == "ladder"
+                        and e["args"].get("kernel") == "B1")
+        started = sorted(e["ts"] for e in kern
+                         if "rns2_sliding_kernel" in e["name"])
+        span_lags("trace (CPU + CUDA)", opened, started, 1.0,
+                  tr_counts["B1"], {
+            n: sum(e["name"] == n for e in mine)
+            for n in sorted({e["name"] for e in mine})})
     del events, kern
+
+    # the gate: a profiler of CUDA activity alone, in a fresh process, as
+    # the harness starts it (a long process's later sessions lose their
+    # first device events and drift from its host clock)
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        gate = ex.submit(gate_window, dict(
+            sk=dataclasses.replace(skey), ms=ms, rs=rs)).result(timeout=300)
+    rec, dev_ev, issued = gate["rec"], gate["ev"], gate["issued"]
+    launches["B1"] += gate["b1"]
+    if not gate["ok"] or gate["b1"] != 3:
+        fail(f"the CUDA-only window's results are wrong or it launched B1 "
+             f"{gate['b1']} times, expected 3")
+    roots = [s["name"] for s in rec["spans"] if s["parent"] < 0]
+    if roots != ["encrypt", "decrypt"] or rec["anchor_ns"] is None:
+        fail(f"a CUDA-only profiler recorded the roots {roots}: the span "
+             f"gate is off")
+    offset = dev_ev[0][0] - gate["marker_ns"]      # benchmark/traces.py's
+    anchor = rec["anchor_ns"]
+    marks = dev_ev[-MARKERS:]
+    lo = max(end - back for (_, end, _), (_, back) in zip(marks, issued))
+    hi = min(start - t_issue
+             for (start, _, _), (t_issue, _) in zip(marks, issued))
+    span_lags("CUDA-only window", sorted(
+        s["start_ns"] + anchor for s in rec["spans"]
+        if s["name"] == "ladder" and s["attrs"].get("kernel") == "B1"),
+        sorted(t for t, _, name in dev_ev if "rns2_sliding_kernel" in name),
+        1e3, 3, {n: sum(s["name"] == n for s in rec["spans"])
+                 for n in sorted({s["name"] for s in rec["spans"]})})
+    phase("trace", f"clock: spans' anchor {anchor} ns; {MARKERS} markers "
+          f"bracket the offset in [{lo}, {hi}] ns ({(hi - lo) / 1e3:.1f} "
+          f"us wide): anchor - low {(anchor - lo) / 1e3:.1f} us, high - "
+          f"anchor {(hi - anchor) / 1e3:.1f} us; one marker as "
+          f"benchmark/traces.py measures it: offset {offset} ns, offset - "
+          f"anchor {(offset - anchor) / 1e3:.1f} us (the window's first "
+          f"device event, {dev_ev[0][2][:60]!r}, {len(dev_ev)} events) "
+          f"({card})")
+    if not lo <= anchor <= hi:
+        fail("the spans' anchor lies outside the markers' bracket: the "
+             "spans are not on the device events' clock")
 
     # -- 15. wide: kernel B4w and the key widths past 768 limbs ------------
     # B4w against its plain version over 32 digits (64 rows at L = 1,024

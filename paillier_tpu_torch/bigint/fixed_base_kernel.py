@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from ..ops.profiling import spanned
 from . import cuda_build
 from .modexp_kernel import _check_digits
 from .rns2 import Rns2Context, rns2_pow_fixed_base_plain
@@ -49,6 +50,7 @@ def load():
     return lib
 
 
+@spanned("ladder", kernel="B3")
 def rns2_pow_fixed_base_b3(ctx: Rns2Context, table: torch.Tensor, digits,
                            window: int = 4, fin: torch.Tensor | None = None
                            ) -> torch.Tensor:

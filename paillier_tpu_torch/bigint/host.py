@@ -19,6 +19,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from ..ops.profiling import spanned
+
 
 def _native():
     """The native GMP host-math runtime (:mod:`paillier_tpu_torch.native`),
@@ -114,6 +116,7 @@ def modinv(a: int, n: int) -> int:
     return pow(a, -1, n)
 
 
+@spanned("host_int", op="modinv")
 def modinv_batch(values, n: int) -> list[int]:
     """Batched modular inverse: native threaded GMP when available,
     else the Montgomery batch-inversion trick (one inverse plus

@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ..ops.profiling import spanned
 from . import cuda_build
 from .rns2 import Rns2Context, rns2_pow_plain
 
@@ -68,6 +69,7 @@ def _check_digits(digits: torch.Tensor, B: int, window: int) -> None:
                          f"{window}, got [{lo}, {hi}]")
 
 
+@spanned("ladder", kernel="B2")
 def rns2_pow_b2(ctx: Rns2Context, x: torch.Tensor, digits,
                 window: int = 4) -> torch.Tensor:
     """x^e mod N by the fixed-window ladder.

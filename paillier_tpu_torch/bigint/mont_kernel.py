@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..ops.profiling import span, spanned
 from . import cuda_build
 from .host import ints_to_limbs, limbs_to_ints
 from .modexp_kernel import _check_digits
@@ -327,18 +328,25 @@ def mont_pow_b4(ctx: MontCtx, base: torch.Tensor, digits,
     ``mont_pow_b4.launches``; B4w launches as :func:`mont_pow_b4w` does
     and adds one to ``mont_pow_b4w.launches``.
     """
-    if base.device.type == "cpu":
-        return mont_pow_digits_plain(ctx, base, digits, window)
-    base, digits, squeeze = _operands(ctx, base, digits, window, "B4")
-    sms = torch.cuda.get_device_properties(base.device).multi_processor_count
-    if variant(ctx.n_limbs, base.shape[0], sms) == "B4w":
-        out = launch_wide(ctx, base, digits, window)
-    else:
-        out = launch(ctx, base, digits, window,
-                     lanes_per_row(-(-ctx.n_limbs // 2), base.shape[0], sms))
-    return out[0] if squeeze else out
+    kernel = "B4"
+    if base.device.type == "cuda":
+        sms = torch.cuda.get_device_properties(
+            base.device).multi_processor_count
+        kernel = variant(ctx.n_limbs, base.shape[0] if base.dim() == 2
+                         else 1, sms)
+    with span("ladder", kernel=kernel):
+        if base.device.type == "cpu":
+            return mont_pow_digits_plain(ctx, base, digits, window)
+        base, digits, squeeze = _operands(ctx, base, digits, window, "B4")
+        if kernel == "B4w":
+            out = launch_wide(ctx, base, digits, window)
+        else:
+            out = launch(ctx, base, digits, window, lanes_per_row(
+                -(-ctx.n_limbs // 2), base.shape[0], sms))
+        return out[0] if squeeze else out
 
 
+@spanned("ladder", kernel="B4w")
 def mont_pow_b4w(ctx: MontCtx, base: torch.Tensor, digits,
                  window: int = 4) -> torch.Tensor:
     """:func:`mont_pow_b4`'s contract on kernel B4w, at any width: a block

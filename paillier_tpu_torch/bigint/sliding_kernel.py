@@ -21,6 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..ops.profiling import spanned
 from . import cuda_build
 from .rns2 import Rns2Context, rns2_pow_sliding_plain
 
@@ -48,6 +49,7 @@ def load():
     return lib
 
 
+@spanned("ladder", kernel="B1")
 def rns2_pow_sliding_b1(ctx: Rns2Context, x: torch.Tensor, sched,
                         window: int = 6, fin: torch.Tensor | None = None
                         ) -> torch.Tensor:

@@ -30,6 +30,7 @@ from ..bigint import host, vpu
 from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import rns2
+from ..ops.profiling import spanned
 from .keys import (DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO, LIMB_WINDOW, MIXED,
                    Ciphertext, DeviceKey, SecretKey, decode_batch)
 
@@ -285,10 +286,15 @@ class Decryptor:
                 self._fn = lambda c: decrypt_kernel_rns(
                     self.dk, eng, c, level, lam, mu)
 
+    @spanned("decrypt")
     def decrypt(self, ct: Ciphertext) -> list[int]:
-        return decode_batch(self.decrypt_array(ct))
+        return decode_batch(self._decrypt(ct))
 
+    @spanned("decrypt")
     def decrypt_array(self, ct: Ciphertext) -> torch.Tensor:
+        return self._decrypt(ct)
+
+    def _decrypt(self, ct: Ciphertext) -> torch.Tensor:
         if ct.level != self.level:
             raise ValueError(
                 f"decryptor built for level {self.level}, got {ct.level}")

@@ -36,6 +36,7 @@ from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import vpu
 from ..ops import random as prand
+from ..ops.profiling import spanned
 from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
                    LIMB_WINDOW, REGULAR, Ciphertext, DeviceKey, PublicKey,
                    encode_batch)
@@ -223,6 +224,7 @@ class Encryptor:
         return prand.random_units(self.pk.n, count, self.rng)
 
     # -- encryption -------------------------------------------------------
+    @spanned("encrypt")
     def encrypt(self, ms: Sequence[int] | torch.Tensor,
                 rs: Optional[Sequence[int]] = None) -> Ciphertext:
         """Encrypt a batch of plaintexts (ints < n^s, or a limb tensor)."""

@@ -33,6 +33,7 @@ from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import vpu
 from ..ops import random as prand
+from ..ops.profiling import span, spanned
 from .encrypt import Encryptor, gm_binomial
 from .keys import (LEVEL_ONE, LEVEL_TWO, MIXED, REGULAR, Ciphertext,
                    PublicKey, SecretKey, decode_batch, encode_batch)
@@ -56,6 +57,7 @@ def _inverse_limbs(ct: Ciphertext, modulus: int) -> torch.Tensor:
                         device=ct.c.device).reshape(ct.c.shape)
 
 
+@spanned("add")
 def add(pk: PublicKey, *cts: Ciphertext) -> Ciphertext:
     """Homomorphic addition: elementwise product mod n^(s+1)
     (reference: operations.go:11-29)."""
@@ -81,6 +83,7 @@ def sub(pk: PublicKey, *cts: Ciphertext) -> Ciphertext:
     return Ciphertext(c=acc, level=level, method=MIXED)
 
 
+@spanned("const_mult")
 def const_mult(pk: PublicKey, ct: Ciphertext, k) -> Ciphertext:
     """ct^k mod n^(s+1) (reference: operations.go:58-64).
 
@@ -92,10 +95,11 @@ def const_mult(pk: PublicKey, ct: Ciphertext, k) -> Ciphertext:
     if isinstance(k, (int, np.integer)):
         c = dk.pow_int(level, ct.c, int(k))
     else:
-        bits = max(int(ki).bit_length() for ki in k) or 1
-        nd = mont.n_digits_for_bits(bits, B2_WINDOW)
-        digits = np.stack([mont.exp_digits(int(ki), B2_WINDOW, nd)
-                           for ki in k])
+        with span("host_int", op="exp_digits"):
+            bits = max(int(ki).bit_length() for ki in k) or 1
+            nd = mont.n_digits_for_bits(bits, B2_WINDOW)
+            digits = np.stack([mont.exp_digits(int(ki), B2_WINDOW, nd)
+                               for ki in k])
         digits = torch.as_tensor(digits.reshape(ct.c.shape[:-1] + (nd,)),
                                  device=ct.c.device)
         c = dk.pow(level, ct.c, digits, B2_WINDOW)
@@ -129,6 +133,7 @@ def aggregate_kernel(ctx: mont.MontCtx, c: torch.Tensor,
     return mont.mont_mul(ctx, x[0], r_fix.expand(x[0].shape))
 
 
+@spanned("aggregate")
 def aggregate(pk: PublicKey, ct: Ciphertext, axis: int = 0) -> Ciphertext:
     """Homomorphic sum of a whole batch: prod_i c_i mod n^(s+1).
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..bigint import host, vpu
+from ..ops.profiling import span
 
 # Encryption levels (generalized Damgard-Jurik s; reference: paillier.go:15-23)
 LEVEL_ONE = 1
@@ -323,10 +324,13 @@ class DeviceKey:
 
 def encode_batch(values, n_limbs: int, *, device) -> torch.Tensor:
     """List of Python ints -> int64 [B, n_limbs] limb tensor on ``device``."""
-    limbs = host.ints_to_limbs(list(values), n_limbs).astype(np.int64)
-    return torch.as_tensor(limbs, device=device)
+    values = list(values)
+    with span("encode", rows=len(values)):
+        limbs = host.ints_to_limbs(values, n_limbs).astype(np.int64)
+        return torch.as_tensor(limbs, device=device)
 
 
 def decode_batch(arr: torch.Tensor) -> list[int]:
     """Limb tensor [B, L] -> list of Python ints."""
-    return host.limbs_to_ints(arr.cpu().numpy())
+    with span("decode", rows=arr.shape[0]):
+        return host.limbs_to_ints(arr.cpu().numpy())

@@ -6,6 +6,11 @@ The port of ``paillier_tpu.ops.profiling`` for the H100:
   activity) that writes a Chrome trace (``trace.json``, loadable in
   Perfetto or ``chrome://tracing``) of whatever runs inside it into
   ``logdir``, and yields the profiler.
+* :func:`span`, :func:`take`: the port's own stages (API calls, encode /
+  decode, host big-integer work, the ladders' launch wrappers, the hash,
+  the gathers), recorded while a ``torch.profiler`` records in this
+  process and placed on the clock of its device events; :func:`trace`
+  writes them beside the kernels.
 * :class:`RooflineModel`: the least time the card could take for one
   batched modular exponentiation, the larger of its operation term and
   its bytes term, so that a measured time can be quoted as a share of
@@ -25,8 +30,17 @@ have no counterpart here.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
+import json
 import os
+import re
+import shutil
+import threading
+import time
 from dataclasses import dataclass
+
+from torch.autograd import profiler as _torch_profiler
 
 
 @dataclass(frozen=True)
@@ -190,7 +204,9 @@ def trace(logdir: str):
     """``torch.profiler`` trace of the enclosed block (CPU activity, and
     CUDA activity where a card is present), written to
     ``logdir/trace.json`` in the Chrome trace format when the block
-    ends.  Yields the profiler (``key_averages()``, ``events()``)."""
+    ends, with the port's spans of the block (those :func:`take` holds,
+    left for it to take) as a track of their own on the trace's time
+    base.  Yields the profiler (``key_averages()``, ``events()``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -199,4 +215,196 @@ def trace(logdir: str):
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path, _record(clear=False))
+
+
+# ---------------------------------------------------------------------------
+# Spans: the port's stages on the device trace's clock
+# ---------------------------------------------------------------------------
+#
+# A span is recorded exactly while a torch.profiler records in this
+# process (torch's process-wide flag, so the DDLEQ pipeline's worker
+# threads record too); otherwise span() returns one shared no-op object.
+# Spans emit nothing into the profiler: a CUDA user annotation would be
+# counted among the device's events.  Times are time.perf_counter_ns();
+# anchor_ns = time.time_ns() - time.perf_counter_ns(), read when
+# recording starts, puts them on the Unix-epoch nanoseconds of the
+# profiler's events.
+
+_ids = itertools.count()
+_lock = threading.Lock()
+_local = threading.local()
+_spans: list = []                 # every recorded span, open ones too
+_anchor: int | None = None
+_merged: list = []                # the ranks' records (parallel.launch)
+
+
+class _Off:
+    """The span of a call while nothing records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "start_ns", "end_ns", "id", "parent",
+                 "root", "thread")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        global _anchor
+        try:
+            stack = _local.stack
+        except AttributeError:
+            stack = _local.stack = []
+        parent = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = parent
+        self.root = parent.root if parent is not None else self.id
+        self.thread = threading.get_ident()
+        self.end_ns = None
+        with _lock:
+            if _anchor is None:
+                _anchor = time.time_ns() - time.perf_counter_ns()
+            _spans.append(self)
+        stack.append(self)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        _local.stack.pop()
+        return False
+
+
+def span(name: str, **attrs):
+    """Context manager: one stage of the port (``name``, with ``attrs``
+    such as the ladder's kernel), recorded while a ``torch.profiler``
+    records in this process.  A span opened inside another on the same
+    thread is its child; one opened on an empty stack is the root of an
+    API call."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, attrs)
+
+
+def spanned(name: str, **attrs):
+    """Decorator: each call of the function is a :func:`span`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _torch_profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _Span(name, dict(attrs)):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def _launch_counts() -> dict:
+    """The ladders' launch counters (``cuda_build.count_launch``), read
+    from their wrappers, as ``launch.<kernel>``."""
+    from ..bigint import (fixed_base_kernel, modexp_kernel, mont_kernel,
+                          sliding_kernel)
+    wrappers = (("B1", sliding_kernel.rns2_pow_sliding_b1),
+                ("B2", modexp_kernel.rns2_pow_b2),
+                ("B3", fixed_base_kernel.rns2_pow_fixed_base_b3),
+                ("B4", mont_kernel.mont_pow_b4),
+                ("B4w", mont_kernel.mont_pow_b4w))
+    return {f"launch.{k}": getattr(w, "launches", 0) for k, w in wrappers}
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def _record(clear: bool) -> dict:
+    global _spans, _anchor, _merged
+    with _lock:
+        done = [s for s in _spans if s.end_ns is not None]
+        anchor, merged = _anchor, list(_merged)
+        if clear:
+            _spans = [s for s in _spans if s.end_ns is None]
+            _merged = []
+            if not _spans:
+                _anchor = None
+    index = {s.id: i for i, s in enumerate(done)}
+    spans = [{"name": s.name, "attrs": s.attrs, "start_ns": s.start_ns,
+              "end_ns": s.end_ns, "id": s.id,
+              "parent": index.get(s.parent.id, -1) if s.parent else -1,
+              "root": s.root, "thread": s.thread} for s in done]
+    return {"rank": _rank(), "anchor_ns": anchor, "spans": spans,
+            "counters": _launch_counts(), "ranks": merged}
+
+
+def take() -> dict:
+    """The record of the spans that ended since the last take, which it
+    clears: ``spans`` (dicts of ``name``, ``attrs``, ``start_ns`` and
+    ``end_ns`` on ``time.perf_counter_ns()``, ``id``, ``parent`` (its
+    index in the list, -1 for a root or a parent taken before), ``root``
+    (its root's id, which all spans of one API call share) and
+    ``thread``), in the order they opened, ``anchor_ns`` (add it to
+    a span's time for the profiler's clock; None where nothing was
+    recorded), ``rank`` (0 outside ranks), ``counters`` (the launch
+    counters) and ``ranks``: the records of ranks that
+    ``parallel.launch.run_ranks`` brought back, each with its rank."""
+    return _record(clear=True)
+
+
+def merge(rank: int, record: dict) -> None:
+    """Keep a rank's record (from its :func:`take`) for this process's
+    next :func:`take`, tagged with ``rank``; a record without spans is
+    dropped."""
+    if record["spans"] or record["ranks"]:
+        with _lock:
+            _merged.append(dict(record, rank=rank))
+
+
+def _write_spans(path: str, record: dict) -> None:
+    """Add the record's spans (and its ranks') to the Chrome trace at
+    ``path``: complete events of category ``paillier_span``, one track a
+    rank, in microseconds from the trace's ``baseTimeNanoseconds``.  The
+    trace's own events are copied through unread."""
+    rows = []
+    for rec in [record] + record["ranks"]:
+        if rec["anchor_ns"] is None:
+            continue
+        pid = f"paillier_tpu_torch spans, rank {rec['rank']}"
+        rows += [(pid, s, rec["anchor_ns"]) for s in rec["spans"]]
+    if not rows:
+        return
+    with open(path, "rb") as fh:
+        head = fh.read(1 << 16)
+    key = re.search(rb'"traceEvents":\s*\[', head)
+    if key is None:
+        return
+    m = re.search(rb'"baseTimeNanoseconds":\s*(\d+)', head)
+    base = int(m.group(1)) if m else 0
+    events = ",\n".join(json.dumps({
+        "ph": "X", "cat": "paillier_span", "name": s["name"], "pid": pid,
+        "tid": s["thread"], "ts": (s["start_ns"] + anchor - base) / 1e3,
+        "dur": (s["end_ns"] - s["start_ns"]) / 1e3,
+        "args": dict(s["attrs"], root=s["root"])})
+        for pid, s, anchor in rows)
+    sep = "" if head[key.end():].lstrip().startswith(b"]") else ","
+    tmp = path + ".spans"
+    with open(path, "rb") as src, open(tmp, "wb") as dst:
+        dst.write(head[:key.end()])
+        dst.write(("\n" + events + sep).encode())
+        src.seek(key.end())
+        shutil.copyfileobj(src, dst)
+    os.replace(tmp, path)

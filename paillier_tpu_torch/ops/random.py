@@ -18,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from .profiling import spanned
+
 
 def make_rng(seed: Optional[int] = None):
     """CSPRNG by default; deterministic ``random.Random`` when seeded."""
@@ -39,11 +41,13 @@ def random_unit(n: int, rng=None) -> int:
             return r
 
 
+@spanned("host_int", op="units")
 def random_units(n: int, count: int, rng=None) -> list[int]:
     rng = rng or secrets.SystemRandom()
     return [random_unit(n, rng) for _ in range(count)]
 
 
+@spanned("host_int", op="units")
 def random_units_limbs(n: int, count: int, rng=None,
                        n_limbs: Optional[int] = None) -> np.ndarray:
     """Uniform Z_n^* as int64 [count, n_limbs] little-endian 16-bit limbs.

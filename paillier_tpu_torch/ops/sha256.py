@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from .profiling import spanned
+
 _K = [
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5,
     0x3956c25b, 0x59f111f1, 0x923f82a4, 0xab1c5ed5,
@@ -91,6 +93,7 @@ def concat_be(parts: list[tuple[torch.Tensor, torch.Tensor]],
     return buf, offset[:, 0]
 
 
+@spanned("hash")
 def sha256_bytes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """SHA-256 of each row's first ``lengths[b]`` bytes (at most W).
 

@@ -31,11 +31,13 @@ import torch.distributed as dist
 from ..bigint import host
 from ..core.homomorphic import aggregate
 from ..core.keys import Ciphertext, PublicKey, decode_batch, encode_batch
+from ..ops.profiling import spanned
 from ..threshold.decrypt import _combine_products, _combine_tail
 from ..threshold.keys import ThresholdPublicKey
 from .mesh import BATCH_AXIS, SERVER_AXIS, axis
 
 
+@spanned("gather")
 def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """[ranks of ``group``, *t.shape]: every rank's ``t``, in group-rank
     order, on ``t``'s device.  Every rank passes the same shape and dtype.

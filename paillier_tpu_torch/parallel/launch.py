@@ -9,7 +9,10 @@ runs ``body(rank, world, *args)`` in each and returns their results in
 rank order.  Any rank that raises or dies fails the call, and ranks still
 running at ``timeout`` seconds are killed and fail it too.  ``body`` must
 be importable by name (a module-level function) and its arguments and
-results picklable (plain Python data, numpy arrays, CPU tensors).
+results picklable (plain Python data, numpy arrays, CPU tensors).  Each
+rank's spans (``ops.profiling.take()``, recorded where the rank ran a
+``torch.profiler``) travel with its result and join this process's
+record, tagged with the rank (``ops.profiling.merge``).
 
 The driver entry points (:mod:`paillier_tpu_torch.dryrun`,
 :mod:`paillier_tpu_torch.scaling_probe`) and the tests start their ranks
@@ -27,6 +30,8 @@ from datetime import timedelta
 
 import torch
 import torch.distributed as dist
+
+from ..ops import profiling
 
 
 def run_ranks(body, world: int, *args, init_dir, timeout: float = 120.0,
@@ -50,7 +55,8 @@ def run_ranks(body, world: int, *args, init_dir, timeout: float = 120.0,
                 raise TimeoutError(f"{world - len(results)} of {world} ranks "
                                    f"still running after {timeout} s")
             try:
-                rank, ok, value = results_q.get(timeout=min(left, 1.0))
+                rank, ok, value, record = results_q.get(
+                    timeout=min(left, 1.0))
             except queue.Empty:
                 dead = [(i, p.exitcode) for i, p in enumerate(procs)
                         if p.exitcode not in (None, 0)]
@@ -61,6 +67,7 @@ def run_ranks(body, world: int, *args, init_dir, timeout: float = 120.0,
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{value}")
             results[rank] = value
+            profiling.merge(rank, record)
     finally:
         for p in procs:
             p.join(timeout=10 if len(results) == world else 0)
@@ -80,9 +87,9 @@ def _rank(body, rank, world, init, backend, args, results_q):
                                 timeout=timedelta(seconds=300))
         out = body(rank, world, *args)
         dist.barrier()
-        results_q.put((rank, True, out))
+        results_q.put((rank, True, out, profiling.take()))
     except BaseException:
-        results_q.put((rank, False, traceback.format_exc()))
+        results_q.put((rank, False, traceback.format_exc(), None))
         raise
     finally:
         if dist.is_initialized():

@@ -37,6 +37,7 @@ from ..bigint import montgomery as mont
 from ..bigint.rns2 import I1_ONE, I2_ONE
 from ..core.homomorphic import B2_WINDOW
 from ..core.keys import Ciphertext, decode_batch, encode_batch
+from ..ops.profiling import span, spanned
 from .keys import PartialDecryption, ThresholdPublicKey, ThresholdSecretKey
 
 
@@ -75,6 +76,7 @@ def partial_decrypt(tsk: ThresholdSecretKey, ct: Ciphertext
     return PartialDecryptionBatch(id=tsk.id, c=out)
 
 
+@spanned("partial")
 def partial_decrypt_all(tsks: Sequence[ThresholdSecretKey], ct: Ciphertext
                         ) -> List[PartialDecryptionBatch]:
     """The partial decryptions of several servers of one key: the
@@ -180,6 +182,7 @@ def _combine_products(dk, powed: torch.Tensor, sel: torch.Tensor) -> tuple:
             dk._widen(eng.to_limbs_mod(tree(neg)), 1))
 
 
+@spanned("combine")
 def combine(tpk: ThresholdPublicKey,
             shares: Sequence[PartialDecryptionBatch]) -> List[int]:
     """Merge partial decryptions into plaintexts (thresholdkey.go:149-161),
@@ -193,7 +196,8 @@ def combine(tpk: ThresholdPublicKey,
     L = dk.L
     ids = [s.id for s in shares]
 
-    lam2s = [2 * compute_lambda(tpk, s.id, ids) for s in shares]
+    with span("host_int", op="lagrange"):
+        lam2s = [2 * compute_lambda(tpk, s.id, ids) for s in shares]
     use = [(s, l2) for s, l2 in zip(shares, lam2s) if l2 != 0]
     if use:
         stacked = torch.stack([s.c.reshape(-1, 2 * L) for s, _ in use])

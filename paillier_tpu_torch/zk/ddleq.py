@@ -66,6 +66,7 @@ from ..core.homomorphic import B2_WINDOW, extract_randomness
 from ..core.keys import (LEVEL_ONE, LEVEL_TWO, Ciphertext, PublicKey,
                          SecretKey, decode_batch, encode_batch)
 from ..ops import random as prand
+from ..ops.profiling import spanned
 from ..ops.sha256 import concat_be, limbs_to_be_bytes, sha256_bytes
 from ..parallel.collective import _all_gather
 from ..parallel.mesh import BATCH_AXIS, axis
@@ -265,6 +266,7 @@ def prove(sk: SecretKey, ct1: Ciphertext, ct2: Ciphertext,
                   _stage_runner(mesh))
 
 
+@spanned("prove")
 def _prove(sk, ct1, ct2, a_list, b_list, secpar, rng, use_crt,
            run) -> DDLEQProof:
     rng = rng or prand.make_rng()
@@ -364,6 +366,7 @@ def verify(pk: PublicKey, ct1: Ciphertext, ct2: Ciphertext,
     return _verify(pk, ct1, ct2, proof, _stage_runner(mesh))
 
 
+@spanned("verify")
 def _verify(pk, ct1, ct2, proof, run) -> List[bool]:
     dev = ct1.c.device
     dk = pk.device(dev)

@@ -195,3 +195,33 @@ def ddleq_body(rank, world, sk, c1, c2, a_l, b_l, secpar, seed, chunks,
                 ok=ok, bad=bad, flat_err=flat_err, piped=piped,
                 prove_launches=prove_launches,
                 verify_launches=verify_launches)
+
+
+def traced_ddleq_body(rank, world, sk, c1, c2, a_l, b_l, secpar, seed,
+                      device):
+    """A proof with mesh= from ``seed`` and its verdicts, first with no
+    profiler, then again under ``torch.profiler`` (CPU activity), so
+    this rank records its spans; returns both proofs (numpy) and
+    verdicts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paillier_tpu_torch.core.keys import LEVEL_TWO, Ciphertext
+    from paillier_tpu_torch.parallel import make_mesh
+    from paillier_tpu_torch.zk import ddleq as zd
+    _no_jax()
+    dev = rank_device(device)
+    mesh = make_mesh(device_type=dev.type)
+    ct1 = Ciphertext(c=torch.as_tensor(c1, device=dev), level=LEVEL_TWO)
+    ct2 = Ciphertext(c=torch.as_tensor(c2, device=dev), level=LEVEL_TWO)
+
+    def run():
+        proof = zd.prove(sk, ct1, ct2, a_l, b_l, secpar,
+                         random.Random(seed), mesh=mesh)
+        ok = zd.verify(sk.public(), ct1, ct2, proof, mesh=mesh)
+        return {f: getattr(proof, f).cpu().numpy()
+                for f in ("x", "y", "alpha", "e", "f")}, ok
+
+    plain = run()
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = run()
+    return dict(plain=plain, traced=traced)
