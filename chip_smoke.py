@@ -9,8 +9,8 @@ non-zero):
                 power limit.
   2. build   -- builds kernels B1 (csrc/rns2_sliding.cu), B2
                 (csrc/rns2_modexp.cu), B3 (csrc/rns2_fixed_base.cu), B4
-                (csrc/limb_modexp.cu) and B4w (csrc/limb_modexp_wide.cu)
-                and the probes P1-P5
+                (csrc/limb_modexp.cu), B4w (csrc/limb_modexp_wide.cu),
+                the SHA-256 (csrc/sha256.cu) and the probes P1-P5
                 (csrc/probe_*.cu), one nvcc each, all at once, into
                 build/paillier_tpu_torch/, and prints the build time and
                 ptxas' register and spill report of every instantiation;
@@ -135,7 +135,11 @@ non-zero):
                 partial_decrypt_with_zkp of servers 1-3 on the same 4096
                 (1 B1 + 2 B2 each), verify_proofs of each (4 B2), a
                 tampered proof that must fail, combine_with_zkp giving the
-                plaintexts; the SHA-256 challenges timed apart.
+                plaintexts; the SHA-256 challenges timed apart; then
+                the SHA-256 kernel on the first proof batch's bytes
+                (4096 rows of a || b || c^4 || c_i^2, 4,096 bytes)
+                against its plain version and hashlib on every row,
+                timed beside the plain version and its bound.
  11. ddleq   -- bench.py's ddleq configuration at 2048 bits (phase 4's
                 key): 128 nested encryptions, nested_randomize, a
                 warm-up prove + verify at secpar 40; a timed serial
@@ -148,7 +152,13 @@ non-zero):
                 fails; 8 instances pass the host formula;
                 then pipeline_prove_verify over two chunks (256 proofs,
                 seeds 0xDD1E0 + i): DDLEQ prove+verify/s with the
-                card's name and power limit.
+                card's name and power limit.  The SHA-256 kernel on
+                the serial chunk's challenge bytes (c2 || x || y ||
+                alpha, 2,048 bytes, as the prover hashed them) on all
+                5,120 rows and on the first 1,280 (a rank's block on
+                four cards) equals its plain version and hashlib on
+                every row, so the proofs are those the plain hash
+                gives; timed beside the plain version and its bound.
  12. parallel -- two gloo ranks spawned on the card (tests/torch_ranks.py's
                 run_ranks; the ranks load the kernels phase 2 built):
                 sharded_aggregate of phase 5's 65,536-row tile (32,768 a
@@ -164,7 +174,8 @@ non-zero):
                 verifies.  Each rank times
                 each step between synchronisations and counts its
                 launches from 0 (set-up 0; the aggregate seam 0; prove
-                B1 7, B2 8, B4 1; verify B1 2, B2 1); then the driver's
+                B1 7, B2 8, B4 1, SHA 1; verify B1 2, B2 1, SHA 1);
+                then the driver's
                 dryrun_multichip(2) on the same ranks (its two lines
                 printed, its launches held); any rank's failure
                 or a count off by one fails the run.  Prints each step's
@@ -188,8 +199,10 @@ non-zero):
                 serial phase-11 chunk (into build/trace/trace.json): the
                 card's busy share in each window (the union of its kernel
                 intervals over the window's span), the 5 kernels with
-                most device time, and the count of B1-B4 kernel events,
-                which must equal the launch counters (B1 12, B2 9, B4 1);
+                most device time, and the count of B1-B4w and SHA-256
+                kernel events,
+                which must equal the launch counters (B1 12, B2 9, B4 1,
+                SHA 2);
                 the port's spans, which the trace carries: as many as
                 profiling.take() holds, and no B1 kernel event starting
                 before the B1 ``ladder`` span of its launch opened (the
@@ -230,18 +243,19 @@ non-zero):
                 exponents, B4w) equal to pow.
 Phases 4-15 each set the launch counters to 0 just before their
 operations and read them just after; a phase, or an operation in it,
-whose B1, B2, B3, B4 and B4w launches differ from the exact count its
-entry points make fails (the prime search's B4 count is the number of Fermat
+whose B1, B2, B3, B4, B4w and SHA-256 launches differ from the exact
+count its entry points make fails (the prime search's B4 count is the number of Fermat
 batches it reports).  In phases 10-15 each limb ladder is counted on
 the kernel that mont_kernel.variant names for its width and rows on
 this card (B4w from 256 limbs on up to 2 rows an SM, past 768 limbs
 always, else B4): phase 10: keys 1 (L = 256, 5 rows: B4w), partial
-decryption B1 3, combine B2 1, the proofs B1 3 and B2 35; phase 11:
-the serial chunk B1 9, B2 9, 1 limb (L = 128: B4), the checks B1 15,
-B2 14, 2 limb, the pipeline B1 18, B2 18, 2 limb; phase 12: each
-rank's, above, and none in this process; phase 13: B1 2, 5 limb
-(L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb (B4), then B1
-3; phase 15:
+decryption B1 3, combine B2 1, the proofs B1 3, B2 35 and SHA 10;
+phase 11: the serial chunk B1 9, B2 9, 1 limb (L = 128: B4), SHA 2,
+the checks B1 15, B2 14, 2 limb, SHA 3, the pipeline B1 18, B2 18, 2
+limb, SHA 4; phase 12: each rank's (a chunk's prove and verify SHA 1
+each, dryrun_multichip(2) SHA 9), and none in this process; phase 13:
+B1 2, 5 limb (L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb
+(B4), SHA 2, then B1 3; phase 15:
 the 8192-bit key B1 2, 4 limb (B4w), the forced limb branches 6 limb
 (512 and 1,536 rows: B4), the verification keys 1 (B4w)),
 and phase 9 fails unless every probe kernel launched.
@@ -281,8 +295,9 @@ DD_SECPAR = 40         # instances a proof,
 DD_CHUNKS = 2          # and chunks (256 proofs) in its pipeline
 DD_ROWS = DD_CHUNK * DD_SECPAR
 MARKERS = 20           # phase 14's markers bracketing the clocks' offset
-# a phase-12 rank's launches (B1, B2, B3, B4) in dryrun_multichip(2)
-DRYRUN_LAUNCHES = [20, 34, 0, 2]
+# a phase-12 rank's launches (B1, B2, B3, B4, SHA-256) in
+# dryrun_multichip(2): its share proofs hash 7 times, its DDLEQ twice
+DRYRUN_LAUNCHES = [20, 34, 0, 2, 9]
 L4_BITS = 4096         # the limb route's key: level 2 (n^3) past the RNS
 L4_ROWS = 64           # engine, on kernel B4 at L = 768; rows a call
 W8_BITS = 8192         # phase 15's key: both levels past the RNS engine
@@ -399,7 +414,7 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
     """Phase 12, one of two gloo ranks on the card: the two seams and a
     sharded DDLEQ chunk through the port's entry points.  Returns each
     step's seconds, its results (the proofs as SHA-256 digests of their
-    limbs) and each seam's B1-B4 launches."""
+    limbs) and each seam's B1-B4 and SHA-256 kernel launches."""
     import hashlib
 
     import torch
@@ -408,6 +423,7 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
                                            mont_kernel, sliding_kernel)
     from paillier_tpu_torch.core.keys import decode_batch
     from paillier_tpu_torch.dryrun import dryrun_multichip
+    from paillier_tpu_torch.ops import sha256
     from paillier_tpu_torch.scaling_probe import probe_rank
     from paillier_tpu_torch.parallel import (make_mesh, shard_batch,
                                              sharded_aggregate)
@@ -417,7 +433,7 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
         raise RuntimeError("a rank imported JAX")
     wrappers = (sliding_kernel.rns2_pow_sliding_b1, modexp_kernel.rns2_pow_b2,
                 fixed_base_kernel.rns2_pow_fixed_base_b3,
-                mont_kernel.mont_pow_b4)
+                mont_kernel.mont_pow_b4, sha256.sha256_bytes)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     out: dict = {"s": {}, "launches": {}}
@@ -439,7 +455,7 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
     tpk = tkeys[0].public()
 
     def setup():
-        for mod in (sliding_kernel, modexp_kernel, mont_kernel):
+        for mod in (sliding_kernel, modexp_kernel, mont_kernel, sha256):
             mod.load()
         for key, levels in ((pk, (1, 2)), (tpk, (1,))):
             for lv in levels:
@@ -529,6 +545,7 @@ def main() -> None:
     from paillier_tpu_torch import dryrun as pt_dryrun
     from paillier_tpu_torch import scaling_probe
     from paillier_tpu_torch.ops import profiling
+    from paillier_tpu_torch.ops import sha256 as sha_mod
     from paillier_tpu_torch.ops.oracle import oracle_bit
     from paillier_tpu_torch.zk import ddleq as zd
     from paillier_tpu_torch.zk.ddleq import DDLEQProof
@@ -549,8 +566,12 @@ def main() -> None:
     b4 = mk_mod.mont_pow_b4
     b4_plain = mk_mod.mont_pow_digits_plain
     b4w = mk_mod.mont_pow_b4w
-    wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4, "B4w": b4w}
-    mods = {"B1": sk_mod, "B2": mx_mod, "B3": fb_mod, "B4": mk_mod}
+    sha_k = sha_mod.sha256_bytes
+    sha_plain = sha_mod.sha256_bytes_plain
+    wrappers = {"B1": b1, "B2": b2, "B3": b3, "B4": b4, "B4w": b4w,
+                "SHA": sha_k}
+    mods = {"B1": sk_mod, "B2": mx_mod, "B3": fb_mod, "B4": mk_mod,
+            "SHA": sha_mod}
     probe_mods = {"P1": pr_dotvar, "P2": pr_dotchain, "P3": pr_overlap,
                   "P4": pr_pad, "P5": pr_vpuops}
     probe_wrappers = {"P1": pr_dotvar.dotvar, "P2": pr_dotchain.dotchain,
@@ -1322,10 +1343,10 @@ def main() -> None:
         return {kname: w.launches for kname, w in wrappers.items()}
 
     def timed(name, fn, b1_want=0, b2_want=0, b3_want=0, b4_want=0,
-              b4w_want=0):
+              b4w_want=0, sha_want=0):
         """fn() between two synchronisations; its seconds go to op_s.
-        Fails unless fn launched B1, B2, B3, B4 and B4w exactly as often
-        as its entry point does."""
+        Fails unless fn launched B1, B2, B3, B4, B4w and the SHA-256
+        exactly as often as its entry point does."""
         before = counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1333,10 +1354,10 @@ def main() -> None:
         torch.cuda.synchronize()
         op_s[name] = time.perf_counter() - t
         got = tuple(v - before[k] for k, v in counts().items())
-        want = (b1_want, b2_want, b3_want, b4_want, b4w_want)
+        want = (b1_want, b2_want, b3_want, b4_want, b4w_want, sha_want)
         if got != want:
-            fail(f"{name} launched (B1, B2, B3, B4, B4w) {got}, expected "
-                 f"{want}: an operation bypassed its kernel")
+            fail(f"{name} launched (B1, B2, B3, B4, B4w, SHA) {got}, "
+                 f"expected {want}: an operation bypassed its kernel")
         return res
 
     def op_line():
@@ -1713,6 +1734,50 @@ def main() -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in probe_plain_ms.items())
           + f" ({time.perf_counter() - t0:.1f} s in all)")
 
+    # the SHA-256 kernel at the challenges' shapes (phases 10 and 11)
+    SHA_OPS = 2168   # 32-bit operations a 64-byte block: 48 schedule
+    # steps of 13, 64 rounds of 24, the state's 8 additions
+
+    def sha_check(label, buf, ln):
+        """The SHA-256 kernel on buf [B, W] (lengths ln) against the plain
+        version on the card and hashlib on every row, bit for bit, or
+        fail; its time (CUDA events, the mean of 20 launches after one),
+        the plain version's (one call) and the bound: the larger of the
+        int64 bytes in and digests out at 3.35 TB/s and the rows' blocks'
+        32-bit operations on the SMs' 64 INT32 lanes at 1.98 GHz."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        got = sha_k(buf, ln)
+        ev[0].record()
+        for _ in range(20):
+            sha_k(buf, ln)
+        ev[1].record()
+        want = sha_plain(buf, ln)
+        ev[2].record()
+        torch.cuda.synchronize()
+        stats["SHA"]["n"] += 1
+        if not torch.equal(got, want):
+            fail(f"the SHA-256 kernel != plain ({label})")
+        rows = buf.to(torch.uint8).cpu().numpy()
+        host = [int.from_bytes(hashlib.sha256(rows[i, :n].tobytes())
+                               .digest(), "big")
+                for i, n in enumerate(ln.tolist())]
+        if sha_mod.digest_to_ints(got) != host:
+            fail(f"the SHA-256 kernel != hashlib ({label})")
+        B, W = buf.shape
+        blocks = int(((ln + 9 + 63) // 64).sum())
+        t_ops = blocks * SHA_OPS / (sms * 64 * 1.98e9)
+        t_bytes = (B * W * 8 + B * 8 + B * 64) / 3.35e12
+        rec = {"shape": label, "ms": ev[0].elapsed_time(ev[1]) / 20,
+               "plain_ms": ev[1].elapsed_time(ev[2]),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        stats["SHA"]["times"].append(rec)
+        return (f"SHA-256 kernel, {label} ({blocks} blocks): equal to plain "
+                f"and hashlib on every row; {rec['ms'] * 1e3:.2f} us, plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms'] * 1e3:.2f} "
+                f"us by {rec['bound_by']} "
+                f"({100 * rec['bound_ms'] / rec['ms']:.2f}%)")
+
     # -- 10. threshold: bench.py's (3, 5)-threshold configuration ----------
     t0 = time.perf_counter()
     p_, q_ = SAFE_P1024, SAFE_Q1024
@@ -1784,6 +1849,7 @@ def main() -> None:
     # share-decryption proofs of servers 1-3 on the same ciphertexts; the
     # hashes (limb bytes, concatenation, SHA-256) timed apart
     hash_s = []
+    zkp_args = []                # the first batch's (a, b, c^4, c_i^2)
     challenges = thr_zkp._zkp_challenges
 
     def timed_challenges(*args):
@@ -1791,30 +1857,34 @@ def main() -> None:
         t = time.perf_counter()
         out = challenges(*args)
         hash_s.append(time.perf_counter() - t)
+        if not zkp_args:
+            zkp_args.extend(args)
         return out
 
     thr_zkp._zkp_challenges = timed_challenges
     zrng = random.Random(THR_SEED + 2)
 
     def zkp_ops():
-        # a proof batch: one B1 (the partial decryption) and two B2 (the
-        # commitments); a verification: four B2
+        # a proof batch: one B1 (the partial decryption), two B2 (the
+        # commitments) and one SHA-256; a verification: four B2 and one
+        # SHA-256
         proofs = [timed(f"prove {k.id}",
                         lambda k=k: partial_decrypt_with_zkp(k, tct, zrng),
-                        1, 2) for k in tkeys[:3]]
+                        1, 2, sha_want=1) for k in tkeys[:3]]
         oks = [timed(f"verify {ps[0].id}",
-                     lambda ps=ps: verify_proofs(ps, device=dev), 0, 4)
+                     lambda ps=ps: verify_proofs(ps, device=dev), 0, 4,
+                     sha_want=1)
                for ps in proofs]
         bad = [dataclasses.replace(proofs[0][0], e=proofs[0][0].e ^ 1)] \
             + proofs[0][1:HOST_ROWS]
         bad_ok = timed("verify tampered", lambda: verify_proofs(
-            bad, device=dev), 0, 4)
+            bad, device=dev), 0, 4, sha_want=1)
         comb = timed("combine_with_zkp", lambda: combine_with_zkp(
-            tpk, proofs, device=dev), 0, 13)
+            tpk, proofs, device=dev), 0, 13, sha_want=3)
         return proofs, oks, bad_ok, comb
 
     (proofs, oks, bad_ok, zout), t_zkp = run_path(
-        "threshold", zkp_ops, {"B1": 3, "B2": 35})
+        "threshold", zkp_ops, {"B1": 3, "B2": 35, "SHA": 10})
     thr_zkp._zkp_challenges = challenges
     zkp_line = op_line()
     if not all(all(o) for o in oks):
@@ -1836,6 +1906,14 @@ def main() -> None:
           f"verifies, the tampered one fails, {HOST_ROWS} verify on the "
           f"host, combine_with_zkp gives the plaintexts ({t_zkp:.2f} s; "
           f"{time.perf_counter() - t0:.1f} s in all)")
+    # the kernel on the first proof batch's challenge bytes
+    zparts = [sha_mod.limbs_to_be_bytes(v) for v in zkp_args]
+    zbuf, zln = sha_mod.concat_be(zparts, sum(p[0].shape[-1]
+                                              for p in zparts))
+    phase("threshold", sha_check(f"threshold proofs' a || b || c^4 || "
+                                 f"c_i^2, {zbuf.shape[0]} rows x "
+                                 f"{zbuf.shape[1]} bytes", zbuf, zln))
+    del zkp_args, zparts, zbuf, zln
 
     # -- 11. ddleq: bench.py's `ddleq` configuration -----------------------
     # 2048-bit key (phase 4's), secpar 40, chunks of 128 nested
@@ -1888,12 +1966,12 @@ def main() -> None:
     def dd_serial():
         pr = timed("prove", lambda: zd.prove(skey, dct1, dct2, da, db,
                                              DD_SECPAR, srng), 7, 8, 0,
-                   **b4_want(dk.L, DD_CHUNK))
+                   sha_want=1, **b4_want(dk.L, DD_CHUNK))
         return pr, timed("verify", lambda: zd.verify(pk, dct1, dct2, pr),
-                         2, 1)
+                         2, 1, sha_want=1)
 
     (proof, ok), _ = run_path("ddleq", dd_serial, merged(
-        {"B1": 9, "B2": 9}, b4_of(dk.L, DD_CHUNK)))
+        {"B1": 9, "B2": 9, "SHA": 2}, b4_of(dk.L, DD_CHUNK)))
     for u in undo:
         u()
     t_prove, t_verify = op_s["prove"], op_s["verify"]
@@ -1907,10 +1985,11 @@ def main() -> None:
         # last proof checked against an unrelated nested ciphertext
         crt = timed("prove 8 (split)", lambda: zd.prove(
             skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
-            random.Random(SEED + 13)), 7, 8, 0, **b4_want(dk.L, HOST_ROWS))
+            random.Random(SEED + 13)), 7, 8, 0, sha_want=1,
+            **b4_want(dk.L, HOST_ROWS))
         full = timed("prove 8 (full width)", lambda: zd.prove(
             skey, *sub8, da[:HOST_ROWS], db[:HOST_ROWS], DD_SECPAR,
-            random.Random(SEED + 13), use_crt=False), 6, 5, 0,
+            random.Random(SEED + 13), use_crt=False), 6, 5, 0, sha_want=1,
             **b4_want(dk.L, HOST_ROWS))
         f = proof.f.clone()
         f[0, 0, 0] ^= 1
@@ -1918,10 +1997,10 @@ def main() -> None:
         c2[-1] = dct3.c[-1]
         return crt, full, timed("verify tampered / unrelated", lambda: (
             zd.verify(pk, dct1, Ciphertext(c=c2, level=2),
-                      dataclasses.replace(proof, f=f))), 2, 1)
+                      dataclasses.replace(proof, f=f))), 2, 1, sha_want=1)
 
     (crt8, full8, bad_ok), _ = run_path(
-        "ddleq", dd_checks, merged({"B1": 15, "B2": 14},
+        "ddleq", dd_checks, merged({"B1": 15, "B2": 14, "SHA": 3},
                                    b4_of(dk.L, HOST_ROWS, 2)))
     check_line = op_line()
     fields = ("x", "y", "alpha", "e", "f")
@@ -1948,6 +2027,23 @@ def main() -> None:
           f"equals full width on {HOST_ROWS} proofs, the tampered proof "
           f"and the proof against an unrelated ciphertext fail and the "
           f"rest verify, {HOST_ROWS} instances pass the host formula")
+    # the kernel on the serial chunk's challenge bytes, c2 || x || y ||
+    # alpha as the prover hashed them: its digests equal the plain
+    # version's, so the chunk's proofs are bit for bit those the plain
+    # hash gives; all 5,120 rows, and the first 1,280 (a rank's block of
+    # the flat axis on four cards)
+    flat = [getattr(proof, f).reshape(DD_ROWS, -1) for f in ("x", "y",
+                                                             "alpha")]
+    dparts = [sha_mod.limbs_to_be_bytes(v) for v in [
+        dct2.c.reshape(DD_CHUNK, -1).repeat_interleave(DD_SECPAR, dim=0)]
+        + flat]
+    dbuf, dln = sha_mod.concat_be(dparts, sum(p[0].shape[-1]
+                                              for p in dparts))
+    for rows in (DD_ROWS // 4, DD_ROWS):
+        phase("ddleq", sha_check(f"DDLEQ's c2 || x || y || alpha, {rows} "
+                                 f"rows x {dbuf.shape[1]} bytes",
+                                 dbuf[:rows], dln[:rows]))
+    del flat, dparts, dbuf, dln
 
     def dd_pipeline():
         jobs = ((dct1, dct2, da, db, random.Random(0xDD1E0 + i))
@@ -1956,7 +2052,7 @@ def main() -> None:
                                              verify_pk=pk))
 
     oks, t_dd = run_path("ddleq", dd_pipeline, merged(
-        {"B1": 9 * DD_CHUNKS, "B2": 9 * DD_CHUNKS},
+        {"B1": 9 * DD_CHUNKS, "B2": 9 * DD_CHUNKS, "SHA": 2 * DD_CHUNKS},
         b4_of(dk.L, DD_CHUNK, DD_CHUNKS)))
     if oks != [[True] * DD_CHUNK] * DD_CHUNKS:
         fail("a pipelined DDLEQ proof did not verify")
@@ -1988,21 +2084,23 @@ def main() -> None:
         ranks, t_par = run_path("parallel", spawn, {})
     except (RuntimeError, TimeoutError) as exc:
         fail(f"phase 12: {exc}")
-    none = [0, 0, 0, 0]
+    # (B1, B2, B3, B4, SHA-256) a rank: a DDLEQ chunk hashes once in
+    # prove and once in verify
+    none = [0, 0, 0, 0, 0]
     want_launch = {"set-up": none, "local aggregate (first call)": none,
                    "local aggregate": none, "sharded_aggregate": none,
-                   "partial_decrypt_all": [2, 0, 0, 0],
-                   "lagrange_powers": [0, 1, 0, 0],
+                   "partial_decrypt_all": [2, 0, 0, 0, 0],
+                   "lagrange_powers": [0, 1, 0, 0, 0],
                    "distributed_combine": none,
-                   f"prove ({HOST_ROWS} proofs, first)": [7, 8, 0, 1],
-                   f"verify ({HOST_ROWS} proofs, first)": [2, 1, 0, 0],
-                   "prove": [7, 8, 0, 1], "verify": [2, 1, 0, 0],
+                   f"prove ({HOST_ROWS} proofs, first)": [7, 8, 0, 1, 1],
+                   f"verify ({HOST_ROWS} proofs, first)": [2, 1, 0, 0, 1],
+                   "prove": [7, 8, 0, 1, 1], "verify": [2, 1, 0, 0, 1],
                    "dryrun_multichip(2)": DRYRUN_LAUNCHES}
     digests = [{f: hashlib.sha256(getattr(pr, f).cpu().numpy().tobytes())
                 .hexdigest() for f in fields} for pr in (crt8, proof)]
     for r, out in enumerate(ranks):
         if out["launches"] != want_launch:
-            fail(f"parallel rank {r} launched (B1, B2, B3, B4) "
+            fail(f"parallel rank {r} launched (B1, B2, B3, B4, SHA) "
                  f"{out['launches']}, expected {want_launch}")
         if out["agg"] != agg_host:
             fail(f"parallel rank {r}: sharded_aggregate != aggregate")
@@ -2017,7 +2115,7 @@ def main() -> None:
             fail(f"parallel rank {r}: dryrun_multichip(2) said "
                  f"{out['dryrun']}")
         for name, counts_ in out["launches"].items():
-            for kname, v in zip(wrappers, counts_):
+            for kname, v in zip(("B1", "B2", "B3", "B4", "SHA"), counts_):
                 launches[kname] += v
     for name in want_launch:
         phase("parallel", f"{name}: " + ", ".join(
@@ -2153,8 +2251,8 @@ def main() -> None:
         launches[kname] += tr_counts[kname]
     if tr_out != ms or tr_ok != [True] * DD_CHUNK:
         fail("a traced window's results are wrong")
-    tr_want = merged({"B1": 12, "B2": 9, "B3": 0, "B4": 0, "B4w": 0},
-                     b4_of(dk.L, DD_CHUNK))
+    tr_want = merged({"B1": 12, "B2": 9, "B3": 0, "B4": 0, "B4w": 0,
+                      "SHA": 2}, b4_of(dk.L, DD_CHUNK))
     if tr_counts != tr_want:
         fail(f"the traced windows launched {tr_counts}, expected "
              f"{tr_want}")
@@ -2196,12 +2294,13 @@ def main() -> None:
                                         ("B2", "rns2_modexp_kernel"),
                                         ("B3", "rns2_fixed_base_kernel"),
                                         ("B4", "limb_modexp_kernel"),
-                                        ("B4w", "limb_modexp_wide_kernel"))}
+                                        ("B4w", "limb_modexp_wide_kernel"),
+                                        ("SHA", "sha256_kernel"))}
         if ev_counts != tr_counts:
             fail(f"the trace holds kernel events {ev_counts}, the launch "
                  f"counters say {tr_counts}")
         mb = os.path.getsize(os.path.join(trace_dir, "trace.json")) / 1e6
-        phase("trace", f"kernel events B1-B4w {ev_counts} equal the launch "
+        phase("trace", f"kernel events B1-SHA {ev_counts} equal the launch "
               f"counters; {len(kern)} kernels, {len(events)} events, "
               f"{mb:.1f} MB, parsed in {time.perf_counter() - t_parse:.1f} s "
               f"({time.perf_counter() - t0:.1f} s in all)")
@@ -2647,6 +2746,8 @@ def main() -> None:
               f"{100 * b4w_bound(sh)[0] / sh['b4_ms']:.2f}%)"
               for sh in at_b4))
     b4w_main = wide_shapes[1]
+    # the SHA-256 at a DDLEQ chunk's block of one rank on four cards
+    sha_main = stats["SHA"]["times"][1]
 
     def entry(kname, name, source, replaces, ms, plain_ms, bnd, **extra):
         return {"name": name, "route": "cuda", "source": source,
@@ -2688,6 +2789,11 @@ def main() -> None:
               b4w_main["plain_ms"], b4w_bound(b4w_main),
               shape=b4w_main["label"], warps=b4w_main["warps"],
               cluster=b4w_main["cluster"]),
+        entry("SHA", "sha256", "paillier_tpu_torch/csrc/sha256.cu",
+              "none: paillier_tpu/ops/sha256.py:94 is jnp", sha_main["ms"],
+              sha_main["plain_ms"],
+              (sha_main["bound_ms"], sha_main["bound_by"]),
+              shape=sha_main["shape"]),
         probe_entry("P1", "probe_dotvar", csrc + "probe_dotvar.cu",
                     pr_dotvar.SCRIPT),
         probe_entry("P2", "probe_dotchain", csrc + "probe_dotchain.cu",

@@ -11,7 +11,7 @@ falls back: a missing ``nvcc`` or a failed build raises.
 
 Also here: what the RNS ladder kernels' wrappers (B1-B3) share (the
 matrices packed into tensor-core fragments, and the checks of a context
-against an operand), and the launch counter of B1-B4.
+against an operand), and the launch counter of the kernels.
 """
 
 from __future__ import annotations

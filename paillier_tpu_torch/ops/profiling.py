@@ -314,15 +314,18 @@ def spanned(name: str, **attrs):
 
 
 def _launch_counts() -> dict:
-    """The ladders' launch counters (``cuda_build.count_launch``), read
-    from their wrappers, as ``launch.<kernel>``."""
+    """The kernels' launch counters (``cuda_build.count_launch``), read
+    from their wrappers, as ``launch.<kernel>``: the ladders B1-B4w and
+    the SHA-256 (``SHA``)."""
     from ..bigint import (fixed_base_kernel, modexp_kernel, mont_kernel,
                           sliding_kernel)
+    from . import sha256
     wrappers = (("B1", sliding_kernel.rns2_pow_sliding_b1),
                 ("B2", modexp_kernel.rns2_pow_b2),
                 ("B3", fixed_base_kernel.rns2_pow_fixed_base_b3),
                 ("B4", mont_kernel.mont_pow_b4),
-                ("B4w", mont_kernel.mont_pow_b4w))
+                ("B4w", mont_kernel.mont_pow_b4w),
+                ("SHA", sha256.sha256_bytes))
     return {f"launch.{k}": getattr(w, "launches", 0) for k, w in wrappers}
 
 

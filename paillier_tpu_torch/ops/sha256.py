@@ -1,26 +1,42 @@
 """Batched SHA-256 on torch tensors, on the device of the input.
 
-The port of ``paillier_tpu.ops.sha256`` (jnp there, plain torch here:
-the JAX module is no Pallas kernel).  It hashes the Fiat-Shamir
-challenges of a batch of proofs at once (reference: crypto/sha256 via
-random_oracle.go:4, thresholdkey.go:5) with the reference's byte
-semantics: each big integer is hashed as its minimal big-endian encoding
-(empty for zero), so message lengths vary along the batch; assembly,
-padding and block counts are elementwise masks and gathers.
+The port of ``paillier_tpu.ops.sha256`` (jnp there: the JAX module is no
+Pallas kernel).  It hashes the Fiat-Shamir challenges of a batch of
+proofs at once (reference: crypto/sha256 via random_oracle.go:4,
+thresholdkey.go:5) with the reference's byte semantics: each big integer
+is hashed as its minimal big-endian encoding (empty for zero), so message
+lengths vary along the batch; assembly is elementwise masks and gathers.
 
-torch has no uint32 add or shift on the CPU, so words are int64 values
-below 2^32 and every sum is masked with 0xFFFFFFFF.  A right rotation of
-a word x reads 32 bits of the 63-bit doubled word x | (x << 32) (its top
-bit, which no rotation reads, dropped).  The batch is the vector axis; the
-blocks and the 64 rounds are sequential, so a message of N blocks costs
-about 2,500 elementwise ops a block, whatever the batch.
+:func:`sha256_bytes` takes a CPU tensor to the plain torch version,
+:func:`sha256_bytes_plain`, and a CUDA tensor to the hand-written kernel
+``paillier_tpu_torch/csrc/sha256.cu`` (one thread a message; its header
+note gives the layout and what bounds it), built by
+:mod:`..bigint.cuda_build` at first use and launched on PyTorch's current
+stream.  There is no fallback: a CUDA tensor that the kernel does not
+take, a failed build or a failed launch raises.
+
+The plain version: torch has no uint32 add or shift on the CPU, so words
+are int64 values below 2^32 and every sum is masked with 0xFFFFFFFF.  A
+right rotation of a word x reads 32 bits of the 63-bit doubled word
+x | (x << 32) (its top bit, which no rotation reads, dropped).  The batch
+is the vector axis; the padding and block counts are masks, the blocks
+and the 64 rounds sequential, so a message of N blocks costs about 2,500
+elementwise ops a block, whatever the batch.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..bigint import cuda_build
 from .profiling import spanned
+
+SOURCE = cuda_build.CSRC / "sha256.cu"
+
+_lib = None
+build_log = ""       # nvcc / ptxas output of the build this process made
 
 _K = [
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5,
@@ -93,14 +109,69 @@ def concat_be(parts: list[tuple[torch.Tensor, torch.Tensor]],
     return buf, offset[:, 0]
 
 
+def load():
+    """Build (once per source hash) and load the kernel library."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    lib, build_log = cuda_build.build(SOURCE)
+    vp = ctypes.c_void_p
+    lib.sha256_launch.argtypes = [vp, vp, vp, ctypes.c_int,
+                                  ctypes.c_longlong, vp]
+    lib.sha256_launch.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
 @spanned("hash")
 def sha256_bytes(data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """SHA-256 of each row's first ``lengths[b]`` bytes (at most W).
+    """SHA-256 of each row's first ``lengths[b]`` bytes (0..W).
 
-    data: integer [B, W] of byte values; lengths: integer [B].  Returns
-    the digests as int64 [B, 8] (big-endian 32-bit words, each < 2^32) on
-    data's device.  Every row runs through the blocks that a W-byte
-    message needs; a row's state stops at its own last block.
+    data: [B, W] of byte values; lengths: [B].  Returns the digests as
+    int64 [B, 8] (big-endian 32-bit words, each < 2^32) on data's device.
+    A CPU tensor (any integer type) runs :func:`sha256_bytes_plain`; a
+    CUDA tensor, int64 and contiguous as :func:`concat_be` gives it,
+    launches the kernel and adds one to ``sha256_bytes.launches``.
+    """
+    if data.device.type == "cpu":
+        return sha256_bytes_plain(data, lengths)
+    if data.device.type != "cuda":
+        raise ValueError(f"the SHA-256 kernel runs on CUDA tensors, got "
+                         f"{data.device}")
+    if data.dtype != torch.int64 or data.dim() != 2:
+        raise ValueError(f"data must be int64 [B, W], got {data.dtype} "
+                         f"{tuple(data.shape)}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    B, W = data.shape
+    if (lengths.dtype != torch.int64 or tuple(lengths.shape) != (B,)
+            or not lengths.is_contiguous() or lengths.device != data.device):
+        raise ValueError(f"lengths must be contiguous int64 [{B}] on "
+                         f"{data.device}, got {lengths.dtype} "
+                         f"{tuple(lengths.shape)} on {lengths.device}")
+    lib = load()
+    out = torch.empty((B, 8), dtype=torch.int64, device=data.device)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    with torch.cuda.device(data.device):
+        err = lib.sha256_launch(data.data_ptr(), lengths.data_ptr(),
+                                out.data_ptr(), B, W, stream)
+    if err:
+        raise RuntimeError(f"the SHA-256 kernel's launch failed: cudaError "
+                           f"{err}")
+    cuda_build.count_launch(sha256_bytes)
+    return out
+
+
+sha256_bytes.launches = 0
+
+
+def sha256_bytes_plain(data: torch.Tensor, lengths: torch.Tensor
+                       ) -> torch.Tensor:
+    """:func:`sha256_bytes` in plain torch, on data's device.
+
+    data: integer [B, W] of byte values; lengths: integer [B].  Every row
+    runs through the blocks that a W-byte message needs; a row's state
+    stops at its own last block.
     """
     B, W = data.shape
     dev = data.device

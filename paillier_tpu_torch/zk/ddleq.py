@@ -416,7 +416,7 @@ def pipeline_prove_verify(sk: SecretKey, jobs, secpar: int, *, mesh=None,
                           workers: int = 2,
                           verify_pk: PublicKey | None = None):
     """Prove and verify a stream of chunks, chunk i's host work (native
-    inverses, digit strings, decode / encode, the hash's launches)
+    inverses, digit strings, decode / encode, the challenges' bytes)
     overlapping chunk i +- 1's device ladders.
 
     ``jobs`` is an iterable of (ct1, ct2, a_list, b_list, rng) chunk

@@ -918,17 +918,18 @@ def test_kernel_b2_k256_tiles_on_cuda(cuda_device, tile):
 @pytest.mark.cuda
 def test_ddleq_on_cuda(cuda_device):
     """DDLEQ at a 256-bit key on the card: prove (with the p^3/q^3 split:
-    B1 7, B2 8, B4 1; without: B1 6, B2 5, B4 1) and verify (B1 2, B2 1)
-    give the CPU's proof and verdicts from the same inputs and seed; a
-    tampered instance fails its proof only; the two-chunk pipeline's
-    verdicts equal the serial ones."""
+    B1 7, B2 8, B4 1; without: B1 6, B2 5, B4 1) and verify (B1 2, B2 1),
+    each with one SHA-256 launch, give the CPU's proof and verdicts from
+    the same inputs and seed; a tampered instance fails its proof only;
+    the two-chunk pipeline's verdicts equal the serial ones."""
     import paillier_tpu_torch as pt
     from paillier_tpu_torch.core.keys import Ciphertext
+    from paillier_tpu_torch.ops import sha256 as sha
     from paillier_tpu_torch.zk import ddleq as zd
 
     def counts():
         return (sk.rns2_pow_sliding_b1.launches, mx.rns2_pow_b2.launches,
-                mk.mont_pow_b4.launches)
+                mk.mont_pow_b4.launches, sha.sha256_bytes.launches)
 
     def delta(before):
         return tuple(a - b for a, b in zip(counts(), before))
@@ -941,7 +942,7 @@ def test_ddleq_on_cuda(cuda_device):
     want = zd.prove(skey, ct1, ct2, a_l, b_l, 8, random.Random(3))
     g1 = Ciphertext(c=ct1.c.to(cuda_device), level=2)
     g2 = Ciphertext(c=ct2.c.to(cuda_device), level=2)
-    for use_crt, launches in ((True, (7, 8, 1)), (False, (6, 5, 1))):
+    for use_crt, launches in ((True, (7, 8, 1, 1)), (False, (6, 5, 1, 1))):
         c0 = counts()
         got = zd.prove(skey, g1, g2, a_l, b_l, 8, random.Random(3),
                        use_crt=use_crt)
@@ -951,7 +952,7 @@ def test_ddleq_on_cuda(cuda_device):
             assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     c0 = counts()
     assert zd.verify(pk, g1, g2, got) == [True] * 5
-    assert delta(c0) == (2, 1, 0)
+    assert delta(c0) == (2, 1, 0, 1)
     ints = got.to_ints()
     ints["f"][2][1] = (ints["f"][2][1] + 1) % pk.n3
     bad = zd.DDLEQProof.from_ints(L=pk.device(cuda_device).L,
@@ -961,7 +962,7 @@ def test_ddleq_on_cuda(cuda_device):
     c0 = counts()
     assert list(zd.pipeline_prove_verify(skey, jobs, 8, verify_pk=pk)) == \
         [[True] * 5] * 2
-    assert delta(c0) == (18, 18, 2)
+    assert delta(c0) == (18, 18, 2, 4)
 
 
 @pytest.mark.cuda
@@ -1073,7 +1074,8 @@ def test_kernel_b4_verification_keys_on_cuda(cuda_device):
 @pytest.mark.cuda
 def test_sha256_on_cuda(cuda_device):
     """The port's batched SHA-256 on CUDA tensors against hashlib, the
-    padding edges among the lengths."""
+    padding edges among the lengths: one launch of the kernel
+    (csrc/sha256.cu)."""
     import hashlib
     from paillier_tpu_torch.ops import sha256 as sha
     rng = random.Random(256)
@@ -1083,25 +1085,111 @@ def test_sha256_on_cuda(cuda_device):
     data = torch.zeros((len(msgs), 600), dtype=torch.int64)
     for i, m in enumerate(msgs):
         data[i, :len(m)] = torch.tensor(list(m), dtype=torch.int64)
+    before = sha.sha256_bytes.launches
     got = sha.sha256_bytes(data.to(cuda_device),
                            torch.tensor(lens, device=cuda_device))
+    assert sha.sha256_bytes.launches == before + 1
     assert got.device.type == "cuda"
     assert sha.digest_to_ints(got) == [
         int.from_bytes(hashlib.sha256(m).digest(), "big") for m in msgs]
+
+
+# the widths of the hashed buffers at 2048 bits: DDLEQ's c2 || x || y ||
+# alpha (768 + 256 + 256 + 768 bytes) and the threshold proofs'
+# a || b || c^4 || c_i^2 (512 + 512 + 2048 + 1024)
+SHA_WIDTHS = (2048, 4096)
+
+
+def _sha_rows(rng, W, lens):
+    """int64 [len(lens), W] of seeded random bytes in every position (a
+    row's bytes past its length must not count) and the messages."""
+    data = np.frombuffer(rng.randbytes(len(lens) * W), np.uint8).reshape(
+        len(lens), W).astype(np.int64)
+    return data, [bytes(data[i, :n].astype(np.uint8)) for i, n in
+                  enumerate(lens)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", SHA_WIDTHS)
+def test_sha256_kernel_vs_hashlib_and_plain(cuda_device, W):
+    """The kernel against hashlib and against the plain version on the
+    same CUDA tensor: the padding edges 0, 1, 55, 56, 63, 64, 119, 120,
+    W - 1 and W among 75 rows of mixed lengths (a batch that is not a
+    multiple of the kernel's 32 rows a block), random bytes past each
+    length; one launch, and the plain version none."""
+    import hashlib
+    from paillier_tpu_torch.ops import sha256 as sha
+    rng = random.Random(W)
+    lens = [0, 1, 55, 56, 63, 64, 119, 120, W - 1, W]
+    lens += [rng.randrange(W + 1) for _ in range(65)]
+    rng.shuffle(lens)
+    data, msgs = _sha_rows(rng, W, lens)
+    x = torch.as_tensor(data, device=cuda_device)
+    ln = torch.as_tensor(lens, dtype=torch.int64, device=cuda_device)
+    before = sha.sha256_bytes.launches
+    got = sha.sha256_bytes(x, ln)
+    assert sha.sha256_bytes.launches == before + 1
+    assert got.dtype == torch.int64 and tuple(got.shape) == (75, 8)
+    assert torch.equal(got, sha.sha256_bytes_plain(x, ln))
+    assert sha.sha256_bytes.launches == before + 1
+    assert sha.digest_to_ints(got) == [
+        int.from_bytes(hashlib.sha256(m).digest(), "big") for m in msgs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 1280])
+def test_sha256_kernel_batch_sizes(cuda_device, rows):
+    """Batches below, at and past one block of 32 rows and DDLEQ's 1,280
+    rows a rank at W = 2,048, lengths near the full width as DDLEQ's
+    minimal encodings give them: equal to hashlib on every row."""
+    import hashlib
+    from paillier_tpu_torch.ops import sha256 as sha
+    rng = random.Random(rows)
+    lens = [2048 - rng.randrange(9) for _ in range(rows)]
+    data, msgs = _sha_rows(rng, 2048, lens)
+    got = sha.sha256_bytes(torch.as_tensor(data, device=cuda_device),
+                           torch.as_tensor(lens, device=cuda_device))
+    assert sha.digest_to_ints(got) == [
+        int.from_bytes(hashlib.sha256(m).digest(), "big") for m in msgs]
+
+
+@pytest.mark.cuda
+def test_sha256_kernel_refusals(cuda_device):
+    """The wrapper refuses, with no launch, what the kernel does not take:
+    int32 bytes, a non-contiguous buffer, a 1-D buffer, lengths of
+    another type, shape or device."""
+    from paillier_tpu_torch.ops import sha256 as sha
+    data = torch.zeros((4, 64), dtype=torch.int64, device=cuda_device)
+    ln = torch.full((4,), 10, dtype=torch.int64, device=cuda_device)
+    before = sha.sha256_bytes.launches
+    cases = [(data.to(torch.int32), ln, "int64"),
+             (torch.zeros((64, 4), dtype=torch.int64,
+                          device=cuda_device).t(), ln, "contiguous"),
+             (data[:, ::2], ln, "contiguous"),
+             (data[0], ln[:1], "int64 \\[B, W\\]"),
+             (data, ln.to(torch.int32), "lengths"),
+             (data, ln[:3], "lengths"),
+             (data, ln.cpu(), "lengths")]
+    for d, n, match in cases:
+        with pytest.raises(ValueError, match=match):
+            sha.sha256_bytes(d, n)
+    assert sha.sha256_bytes.launches == before
 
 
 @pytest.mark.cuda
 def test_threshold_on_cuda(cuda_device):
     """(3, 5)-threshold at 512 bits on the card: the verification keys
     (one B4 launch), partial_decrypt_all (a B1 launch a server), combine
-    (one B2 launch), a proof batch (one B1, two B2) and its verification
-    (four B2); plaintexts round-trip and the proofs verify."""
+    (one B2 launch), a proof batch (one B1, two B2, one SHA-256) and its
+    verification (four B2, one SHA-256); plaintexts round-trip and the
+    proofs verify."""
     import paillier_tpu_torch as pt
     from paillier_tpu_torch import threshold as thr
+    from paillier_tpu_torch.ops import sha256 as sha
 
     def counts():
         return (sk.rns2_pow_sliding_b1.launches, mx.rns2_pow_b2.launches,
-                mk.mont_pow_b4.launches)
+                mk.mont_pow_b4.launches, sha.sha256_bytes.launches)
 
     def delta(before):
         return tuple(a - b for a, b in zip(counts(), before))
@@ -1109,7 +1197,7 @@ def test_threshold_on_cuda(cuda_device):
     c0 = counts()
     keys = thr.ThresholdKeyGenerator(512, 5, 3, random.Random(5),
                                      device=cuda_device).generate()
-    assert delta(c0) == (0, 0, 1)
+    assert delta(c0) == (0, 0, 1, 0)
     tpk = keys[0].public()
     assert tpk.vi == tuple(pow(tpk.v, tpk.delta * k.share, tpk.n2)
                            for k in keys)
@@ -1119,11 +1207,11 @@ def test_threshold_on_cuda(cuda_device):
     c0 = counts()
     shares = thr.partial_decrypt_all([keys[0], keys[2], keys[4]], ct)
     assert thr.combine(tpk, shares) == ms
-    assert delta(c0) == (3, 1, 0)
+    assert delta(c0) == (3, 1, 0, 0)
     c0 = counts()
     proofs = thr.partial_decrypt_with_zkp(keys[1], ct, rng)
     assert thr.verify_proofs(proofs, device=cuda_device) == [True] * 7
-    assert delta(c0) == (1, 6, 0)
+    assert delta(c0) == (1, 6, 0, 2)
     assert all(thr.verify_proof(p) for p in proofs[:2])
 
 
@@ -1326,9 +1414,9 @@ def _parallel_case(dev):
 def _check_parallel(results, want):
     """Every rank's results equal one process's, with exact launches:
     aggregate none; combine B1 2 (its two servers), B2 1 (their Lagrange
-    powers); prove with and without the split B1 13, B2 13, B4 2;
-    verify B1 2, B2 1."""
-    none = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    powers); prove with and without the split B1 13, B2 13, B4 2,
+    SHA-256 2; verify B1 2, B2 1, SHA-256 1."""
+    none = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "SHA": 0}
     for agg, comb, dd in results:
         assert agg["sums"] == want["sums"] and agg["on_device"]
         assert agg["launches"] == none
@@ -1338,8 +1426,9 @@ def _check_parallel(results, want):
             for f in ("x", "y", "alpha", "e", "f"):
                 assert np.array_equal(dd["proofs"][crt][f],
                                       getattr(proof, f).cpu().numpy()), f
-        assert dd["prove_launches"] == dict(none, B1=13, B2=13, B4=2)
-        assert dd["verify_launches"] == dict(none, B1=2, B2=1)
+        assert dd["prove_launches"] == dict(none, B1=13, B2=13, B4=2,
+                                            SHA=2)
+        assert dd["verify_launches"] == dict(none, B1=2, B2=1, SHA=1)
         assert (dd["ok"], dd["bad"]) == ([True, True], [True, False])
         assert dd["piped"] == [[True], [True, True], [True]]
 

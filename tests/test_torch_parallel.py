@@ -202,7 +202,8 @@ def test_sharded_aggregate_vs_jax(key128, four, two, jax_aggregates, ranks,
     for r in got:
         assert r["sums"][level] == single
         assert r["on_device"]
-        assert r["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+        assert r["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0,
+                                  "SHA": 0}
     dec = pt.Decryptor(sk, level, device=CPU)
     assert dec.decrypt(Ciphertext(
         c=pt.encode_batch([single], four["cts"][level].shape[-1],
@@ -235,7 +236,8 @@ def test_distributed_combine_vs_jax(four):
     assert jgot == ms
     for r in four["combine"]:
         assert r["plain"] == ms
-        assert r["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+        assert r["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0,
+                                  "SHA": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -121,3 +121,40 @@ def test_oracle_vs_jax():
     # the reference skips the oracle's first input (random_oracle.go:24-26)
     assert oracle.oracle_digest(5, 7) == oracle.oracle_digest(9, 7) \
         == hashlib.sha256(b"\x07").digest()
+
+
+def test_cpu_ddleq_hashes_on_the_plain_version(monkeypatch):
+    """A DDLEQ prove and verify on the CPU (128-bit key, 2 proofs x 4
+    instances) take the plain version, once each, and launch no kernel:
+    ``launch.SHA`` is among ``profiling.take()``'s counters and reads 0."""
+    import paillier_tpu_torch as pt
+    from paillier_tpu_torch.ops import profiling
+    from paillier_tpu_torch.zk import ddleq as zd
+    calls = []
+    plain = sha.sha256_bytes_plain
+
+    def counted(data, lengths):
+        calls.append(tuple(data.shape))
+        return plain(data, lengths)
+
+    monkeypatch.setattr(sha, "sha256_bytes_plain", counted)
+    sk, pk = pt.keygen(128, random.Random(0x5F), device="cpu")
+    rng = random.Random(0x5F1)
+    ct1 = pt.nested_encrypt(pk, [rng.randrange(pk.n) for _ in range(2)],
+                            rng, device="cpu")
+    ct2, a_l, b_l = pt.homomorphic.nested_randomize(pk, ct1, rng)
+    proof = zd.prove(sk, ct1, ct2, a_l, b_l, 4, rng)
+    assert zd.verify(pk, ct1, ct2, proof) == [True, True]
+    L = pk.device("cpu").L
+    assert calls == [(8, 16 * L)] * 2          # c2 || x || y || alpha
+    counters = profiling.take()["counters"]
+    assert counters["launch.SHA"] == 0 == sha.sha256_bytes.launches
+
+
+def test_sha256_bytes_refuses_other_devices():
+    """A tensor on neither the CPU nor a CUDA card raises; nothing falls
+    back to the plain version."""
+    data = torch.zeros((2, 64), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sha.sha256_bytes(data, torch.zeros(2, dtype=torch.int64,
+                                           device="meta"))

@@ -33,10 +33,12 @@ def _no_jax() -> None:
 def _launches() -> dict:
     from paillier_tpu_torch.bigint import (fixed_base_kernel, modexp_kernel,
                                            mont_kernel, sliding_kernel)
+    from paillier_tpu_torch.ops import sha256
     return {"B1": sliding_kernel.rns2_pow_sliding_b1.launches,
             "B2": modexp_kernel.rns2_pow_b2.launches,
             "B3": fixed_base_kernel.rns2_pow_fixed_base_b3.launches,
-            "B4": mont_kernel.mont_pow_b4.launches}
+            "B4": mont_kernel.mont_pow_b4.launches,
+            "SHA": sha256.sha256_bytes.launches}
 
 
 def _raises(exc, fn, *args, **kw) -> str:
