@@ -133,13 +133,18 @@ non-zero):
                 seconds of each step (B1 ladders; combine's Lagrange
                 ladder, residue trees, modinv_batch, tail); then
                 partial_decrypt_with_zkp of servers 1-3 on the same 4096
-                (1 B1 + 2 B2 each), verify_proofs of each (4 B2), a
-                tampered proof that must fail, combine_with_zkp giving the
-                plaintexts; the SHA-256 challenges timed apart; then
-                the SHA-256 kernel on the first proof batch's bytes
-                (4096 rows of a || b || c^4 || c_i^2, 4,096 bytes)
-                against its plain version and hashlib on every row,
-                timed beside the plain version and its bound.
+                (1 B1 + 1 B2 each: the two commitment ladders as one),
+                verify_proofs of each (2 B2), a tampered proof that must
+                fail, combine_with_zkp giving the plaintexts; the SHA-256
+                challenges timed apart; then the batch path
+                (partial_decrypt_with_zkp_batch of servers 1-4, one row
+                of server 2's shares altered, combine_with_zkp_batch)
+                held to the list path from the same generators bit for
+                bit, to the plaintexts and to the dropped server, both
+                timed; then the SHA-256 kernel on the first proof
+                batch's bytes (4096 rows of a || b || c^4 || c_i^2,
+                4,096 bytes) against its plain version and hashlib on
+                every row, timed beside the plain version and its bound.
  11. ddleq   -- bench.py's ddleq configuration at 2048 bits (phase 4's
                 key): 128 nested encryptions, nested_randomize, a
                 warm-up prove + verify at secpar 40; a timed serial
@@ -249,11 +254,13 @@ batches it reports).  In phases 10-15 each limb ladder is counted on
 the kernel that mont_kernel.variant names for its width and rows on
 this card (B4w from 256 limbs on up to 2 rows an SM, past 768 limbs
 always, else B4): phase 10: keys 1 (L = 256, 5 rows: B4w), partial
-decryption B1 3, combine B2 1, the proofs B1 3, B2 35 and SHA 10;
+decryption B1 3, combine B2 1, the proofs B1 3, B2 14 and SHA 8,
+the batch path B1 4, B2 7, SHA 2 and the list path beside it B1 4,
+B2 7, SHA 5;
 phase 11: the serial chunk B1 9, B2 9, 1 limb (L = 128: B4), SHA 2,
 the checks B1 15, B2 14, 2 limb, SHA 3, the pipeline B1 18, B2 18, 2
 limb, SHA 4; phase 12: each rank's (a chunk's prove and verify SHA 1
-each, dryrun_multichip(2) SHA 9), and none in this process; phase 13:
+each, dryrun_multichip(2) SHA 7), and none in this process; phase 13:
 B1 2, 5 limb (L = 768, 64 rows: B4w); phase 14: B1 12, B2 9, 1 limb
 (B4), SHA 2, then B1 3; phase 15:
 the 8192-bit key B1 2, 4 limb (B4w), the forced limb branches 6 limb
@@ -296,8 +303,8 @@ DD_CHUNKS = 2          # and chunks (256 proofs) in its pipeline
 DD_ROWS = DD_CHUNK * DD_SECPAR
 MARKERS = 20           # phase 14's markers bracketing the clocks' offset
 # a phase-12 rank's launches (B1, B2, B3, B4, SHA-256) in
-# dryrun_multichip(2): its share proofs hash 7 times, its DDLEQ twice
-DRYRUN_LAUNCHES = [20, 34, 0, 2, 9]
+# dryrun_multichip(2): its share proofs hash 5 times, its DDLEQ twice
+DRYRUN_LAUNCHES = [20, 19, 0, 2, 7]
 L4_BITS = 4096         # the limb route's key: level 2 (n^3) past the RNS
 L4_ROWS = 64           # engine, on kernel B4 at L = 768; rows a call
 W8_BITS = 8192         # phase 15's key: both levels past the RNS engine
@@ -532,13 +539,11 @@ def main() -> None:
     from paillier_tpu_torch.core import keygen as kg_mod
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
-    from paillier_tpu_torch.threshold import (PartialDecryption,
-                                              ThresholdKeyGenerator, combine,
-                                              combine_ints, combine_with_zkp,
-                                              compute_lambda,
-                                              partial_decrypt_all,
-                                              partial_decrypt_with_zkp,
-                                              verify_proof, verify_proofs)
+    from paillier_tpu_torch.threshold import (
+        PartialDecryption, ThresholdKeyGenerator, combine, combine_ints,
+        combine_with_zkp, combine_with_zkp_batch, compute_lambda,
+        partial_decrypt_all, partial_decrypt_with_zkp,
+        partial_decrypt_with_zkp_batch, verify_proof, verify_proofs)
     from paillier_tpu_torch.threshold import decrypt as thr_dec
     from paillier_tpu_torch.threshold import zkp as thr_zkp
     from paillier_tpu_torch import probes
@@ -1865,26 +1870,27 @@ def main() -> None:
     zrng = random.Random(THR_SEED + 2)
 
     def zkp_ops():
-        # a proof batch: one B1 (the partial decryption), two B2 (the
-        # commitments) and one SHA-256; a verification: four B2 and one
-        # SHA-256
+        # a proof batch: one B1 (the partial decryption), one B2 (the two
+        # commitments' rows stacked) and one SHA-256; a verification: two
+        # B2 (the z ladders, then the e ladders, of both bases stacked)
+        # and one SHA-256, for one server or several
         proofs = [timed(f"prove {k.id}",
                         lambda k=k: partial_decrypt_with_zkp(k, tct, zrng),
-                        1, 2, sha_want=1) for k in tkeys[:3]]
+                        1, 1, sha_want=1) for k in tkeys[:3]]
         oks = [timed(f"verify {ps[0].id}",
-                     lambda ps=ps: verify_proofs(ps, device=dev), 0, 4,
+                     lambda ps=ps: verify_proofs(ps, device=dev), 0, 2,
                      sha_want=1)
                for ps in proofs]
         bad = [dataclasses.replace(proofs[0][0], e=proofs[0][0].e ^ 1)] \
             + proofs[0][1:HOST_ROWS]
         bad_ok = timed("verify tampered", lambda: verify_proofs(
-            bad, device=dev), 0, 4, sha_want=1)
+            bad, device=dev), 0, 2, sha_want=1)
         comb = timed("combine_with_zkp", lambda: combine_with_zkp(
-            tpk, proofs, device=dev), 0, 13, sha_want=3)
+            tpk, proofs, device=dev), 0, 3, sha_want=1)
         return proofs, oks, bad_ok, comb
 
     (proofs, oks, bad_ok, zout), t_zkp = run_path(
-        "threshold", zkp_ops, {"B1": 3, "B2": 35, "SHA": 10})
+        "threshold", zkp_ops, {"B1": 3, "B2": 14, "SHA": 8})
     thr_zkp._zkp_challenges = challenges
     zkp_line = op_line()
     if not all(all(o) for o in oks):
@@ -1906,6 +1912,62 @@ def main() -> None:
           f"verifies, the tampered one fails, {HOST_ROWS} verify on the "
           f"host, combine_with_zkp gives the plaintexts ({t_zkp:.2f} s; "
           f"{time.perf_counter() - t0:.1f} s in all)")
+    # the batch path: servers 1-4 prove together, the low bit of one row
+    # of server 2's shares flipped after proving, the combiner verifies
+    # all 4 x BATCH proofs, drops server 2 and combines the other three;
+    # then the list path from the same generators with the same fault
+    faulty, bad_row = 2, 1234 % BATCH
+
+    def zrngs():
+        return [random.Random(THR_SEED + 3 + k.id) for k in tkeys[:4]]
+
+    def zkp_batch_ops():
+        batches = timed("prove servers 1-4", lambda:
+                        partial_decrypt_with_zkp_batch(tkeys[:4], tct,
+                                                       zrngs()), 4, 4,
+                        sha_want=1)
+        batches[faulty - 1].ci[bad_row, 0] ^= 1
+        return batches, timed("combine_with_zkp_batch", lambda:
+                              combine_with_zkp_batch(tpk, batches), 0, 3,
+                              sha_want=1)
+
+    (zbatches, zres), t_zb = run_path("threshold", zkp_batch_ops,
+                                      {"B1": 4, "B2": 7, "SHA": 2})
+    zb_line = op_line()
+
+    def zkp_list_ops():
+        lists = [timed(f"prove {k.id}", lambda k=k, r=r:
+                       partial_decrypt_with_zkp(k, tct, r), 1, 1,
+                       sha_want=1) for k, r in zip(tkeys[:4], zrngs())]
+        row = lists[faulty - 1][bad_row]
+        lists[faulty - 1][bad_row] = dataclasses.replace(
+            row, decryption=row.decryption ^ 1)
+        return lists, timed("combine_with_zkp", lambda: combine_with_zkp(
+            tpk, lists, device=dev), 0, 3, sha_want=1)
+
+    (zlists, zlout), t_zl = run_path("threshold", zkp_list_ops,
+                                     {"B1": 4, "B2": 7, "SHA": 5})
+    zl_line = op_line()
+    for b, ps in zip(zbatches, zlists):
+        if (decode_batch(b.ci), decode_batch(b.e), decode_batch(b.z)) != (
+                [p.decryption for p in ps], [p.e for p in ps],
+                [p.z for p in ps]):
+            fail(f"server {b.id}'s batch proofs != the list path's")
+    if zres.plaintexts != tms or zlout != tms:
+        fail("combine_with_zkp_batch / combine_with_zkp != the plaintexts")
+    if zres.dropped != [faulty] or zres.kept != [1, 3, 4]:
+        fail(f"combine_with_zkp_batch dropped {zres.dropped}, kept "
+             f"{zres.kept}; expected [{faulty}], [1, 3, 4]")
+    want_ok = [[j != bad_row or k.id != faulty for j in range(BATCH)]
+               for k in tkeys[:4]]
+    if [v.tolist() for v in zres.verdicts] != want_ok:
+        fail("combine_with_zkp_batch's verdicts != every row but the "
+             "altered one")
+    phase("threshold", f"batch proofs of servers 1-4 on {BATCH}, server "
+          f"{faulty}'s row {bad_row} altered: {t_zb:.3f} s ({zb_line}); the "
+          f"list path {t_zl:.3f} s ({zl_line}); the proofs equal bit for "
+          f"bit, both give the plaintexts, server {faulty} dropped, its "
+          f"altered row alone rejected")
     # the kernel on the first proof batch's challenge bytes
     zparts = [sha_mod.limbs_to_be_bytes(v) for v in zkp_args]
     zbuf, zln = sha_mod.concat_be(zparts, sum(p[0].shape[-1]
@@ -1913,7 +1975,7 @@ def main() -> None:
     phase("threshold", sha_check(f"threshold proofs' a || b || c^4 || "
                                  f"c_i^2, {zbuf.shape[0]} rows x "
                                  f"{zbuf.shape[1]} bytes", zbuf, zln))
-    del zkp_args, zparts, zbuf, zln
+    del zkp_args, zparts, zbuf, zln, zbatches, zres, zlists, zlout
 
     # -- 11. ddleq: bench.py's `ddleq` configuration -----------------------
     # 2048-bit key (phase 4's), secpar 40, chunks of 128 nested

@@ -10,7 +10,9 @@ The port of ``paillier_tpu.ops.profiling`` for the H100:
   decode, host big-integer work, the ladders' launch wrappers, the hash,
   the gathers), recorded while a ``torch.profiler`` records in this
   process and placed on the clock of its device events; :func:`trace`
-  writes them beside the kernels.
+  writes them beside the kernels.  :func:`count` keeps the program's own
+  counters (rows of share proofs verified, servers dropped), which
+  :func:`take` reports beside the kernels' launch counters.
 * :class:`RooflineModel`: the least time the card could take for one
   batched modular exponentiation, the larger of its operation term and
   its bytes term, so that a measured time can be quoted as a share of
@@ -239,6 +241,7 @@ _local = threading.local()
 _spans: list = []                 # every recorded span, open ones too
 _anchor: int | None = None
 _merged: list = []                # the ranks' records (parallel.launch)
+_counts: dict = {}                # count()'s counters, since the start
 
 
 class _Off:
@@ -313,6 +316,14 @@ def spanned(name: str, **attrs):
     return wrap
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the program's counter ``name`` (whether or not a
+    profiler records); :func:`take` reports the totals since the process
+    started, as it does the launch counters."""
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
 def _launch_counts() -> dict:
     """The kernels' launch counters (``cuda_build.count_launch``), read
     from their wrappers, as ``launch.<kernel>``: the ladders B1-B4w and
@@ -350,8 +361,10 @@ def _record(clear: bool) -> dict:
               "end_ns": s.end_ns, "id": s.id,
               "parent": index.get(s.parent.id, -1) if s.parent else -1,
               "root": s.root, "thread": s.thread} for s in done]
+    with _lock:
+        counts = dict(_counts)
     return {"rank": _rank(), "anchor_ns": anchor, "spans": spans,
-            "counters": _launch_counts(), "ranks": merged}
+            "counters": {**_launch_counts(), **counts}, "ranks": merged}
 
 
 def take() -> dict:
@@ -363,7 +376,9 @@ def take() -> dict:
     ``thread``), in the order they opened, ``anchor_ns`` (add it to
     a span's time for the profiler's clock; None where nothing was
     recorded), ``rank`` (0 outside ranks), ``counters`` (the launch
-    counters) and ``ranks``: the records of ranks that
+    counters ``launch.*`` and :func:`count`'s, such as
+    ``zkp.rows_verified`` and ``zkp.servers_dropped``: totals since the
+    process started) and ``ranks``: the records of ranks that
     ``parallel.launch.run_ranks`` brought back, each with its rank."""
     return _record(clear=True)
 

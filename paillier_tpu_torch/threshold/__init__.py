@@ -14,7 +14,8 @@ share-decryption zero-knowledge proofs.  The port of
     combine(keys[0].public(), partial_decrypt_all(keys[:3], ct))   # [7, 8]
 """
 
-from .decrypt import (PartialDecryptionBatch, combine, combine_ints,
+from .decrypt import (PartialDecryptionBatch, PartialDecryptionZKPBatch,
+                      combine, combine_ints,
                       compute_lambda, go_div, L_int, lagrange_powers,
                       partial_decrypt, partial_decrypt_all,
                       partial_decrypt_int, verify_partial_decryptions)
@@ -23,17 +24,20 @@ from .keygen import (ThresholdKeyGenerator, compute_share,
 from .keys import (PartialDecryption, PartialDecryptionZKP,
                    ThresholdPublicKey, ThresholdSecretKey, from_reference)
 from .safe_prime import SafePrimeTimeout, generate_safe_prime, is_safe_prime
-from .zkp import (combine_with_zkp, partial_decrypt_with_zkp,
+from .zkp import (CombinedWithZKP, combine_with_zkp, combine_with_zkp_batch,
+                  partial_decrypt_with_zkp, partial_decrypt_with_zkp_batch,
                   verify_decryption, verify_partial_decryption, verify_proof,
-                  verify_proofs)
+                  verify_proofs, verify_proofs_batch)
 
-__all__ = ["PartialDecryptionBatch", "combine", "combine_ints",
-           "compute_lambda", "go_div", "L_int", "lagrange_powers",
-           "partial_decrypt", "partial_decrypt_all", "partial_decrypt_int",
-           "verify_partial_decryptions", "ThresholdKeyGenerator",
-           "compute_share", "generate_threshold_keys", "PartialDecryption",
-           "PartialDecryptionZKP", "ThresholdPublicKey", "ThresholdSecretKey",
-           "from_reference", "SafePrimeTimeout", "generate_safe_prime",
-           "is_safe_prime", "combine_with_zkp", "partial_decrypt_with_zkp",
+__all__ = ["PartialDecryptionBatch", "PartialDecryptionZKPBatch", "combine",
+           "combine_ints", "compute_lambda", "go_div", "L_int",
+           "lagrange_powers", "partial_decrypt", "partial_decrypt_all",
+           "partial_decrypt_int", "verify_partial_decryptions",
+           "ThresholdKeyGenerator", "compute_share", "generate_threshold_keys",
+           "PartialDecryption", "PartialDecryptionZKP", "ThresholdPublicKey",
+           "ThresholdSecretKey", "from_reference", "SafePrimeTimeout",
+           "generate_safe_prime", "is_safe_prime", "CombinedWithZKP",
+           "combine_with_zkp", "combine_with_zkp_batch",
+           "partial_decrypt_with_zkp", "partial_decrypt_with_zkp_batch",
            "verify_decryption", "verify_partial_decryption", "verify_proof",
-           "verify_proofs"]
+           "verify_proofs", "verify_proofs_batch"]

@@ -63,6 +63,23 @@ class PartialDecryptionBatch:
     c: torch.Tensor      # int64 limbs [..., 2L]
 
 
+@dataclass
+class PartialDecryptionZKPBatch:
+    """One server's partial decryptions of a batch with their share
+    proofs (reference: thresholdkey.go:50-58, a row per ciphertext), as
+    limb tensors on the ciphertexts' device."""
+
+    id: int
+    key: ThresholdPublicKey
+    c: torch.Tensor      # int64 limbs [B, 2L]: the ciphertexts
+    ci: torch.Tensor     # int64 limbs [B, 2L]: the partial decryptions
+    e: torch.Tensor      # int64 limbs [B, 16]: the 256-bit challenges
+    z: torch.Tensor      # int64 limbs [B, zL]: the responses
+
+    def partials(self) -> PartialDecryptionBatch:
+        return PartialDecryptionBatch(id=self.id, c=self.ci)
+
+
 # ---------------------------------------------------------------------------
 # Partial decryption
 # ---------------------------------------------------------------------------

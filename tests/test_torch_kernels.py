@@ -1180,9 +1180,9 @@ def test_sha256_kernel_refusals(cuda_device):
 def test_threshold_on_cuda(cuda_device):
     """(3, 5)-threshold at 512 bits on the card: the verification keys
     (one B4 launch), partial_decrypt_all (a B1 launch a server), combine
-    (one B2 launch), a proof batch (one B1, two B2, one SHA-256) and its
-    verification (four B2, one SHA-256); plaintexts round-trip and the
-    proofs verify."""
+    (one B2 launch), a proof batch (one B1, one B2 for both commitments,
+    one SHA-256) and its verification (two B2, one SHA-256); plaintexts
+    round-trip and the proofs verify."""
     import paillier_tpu_torch as pt
     from paillier_tpu_torch import threshold as thr
     from paillier_tpu_torch.ops import sha256 as sha
@@ -1211,7 +1211,7 @@ def test_threshold_on_cuda(cuda_device):
     c0 = counts()
     proofs = thr.partial_decrypt_with_zkp(keys[1], ct, rng)
     assert thr.verify_proofs(proofs, device=cuda_device) == [True] * 7
-    assert delta(c0) == (1, 6, 0, 2)
+    assert delta(c0) == (1, 3, 0, 2)
     assert all(thr.verify_proof(p) for p in proofs[:2])
 
 
