@@ -36,7 +36,7 @@ from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import vpu
 from ..ops import random as prand
-from ..ops.profiling import spanned
+from ..ops.profiling import span, spanned
 from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
                    LIMB_WINDOW, REGULAR, Ciphertext, DeviceKey, PublicKey,
                    encode_batch)
@@ -221,6 +221,10 @@ class Encryptor:
 
     # -- randomness -------------------------------------------------------
     def sample_r(self, count: int) -> list[int]:
+        """``count`` units of Z_n^* from ``self.rng``: the values of
+        ``random_unit`` a row, drawn in batches with the generator left in
+        the same state (``ops.random.random_units_rows``; a generator that
+        overrides its draw methods takes the per-row loop)."""
         return prand.random_units(self.pk.n, count, self.rng)
 
     # -- encryption -------------------------------------------------------
@@ -234,13 +238,19 @@ class Encryptor:
         else:
             m = ms.to(dev)
         count = m[..., 0].numel()
-        if rs is None:
-            rs = self.sample_r(count)
         if self.method == REGULAR:
-            r = encode_batch(rs, self.c_limbs, device=dev).reshape(
-                m.shape[:-1] + (self.c_limbs,))
+            if rs is None:        # sample_r's draws, as limbs
+                rows = prand.random_units_rows(self.pk.n, count, self.rng,
+                                               self.c_limbs)
+                with span("encode", rows=count):
+                    r = torch.as_tensor(rows, device=dev)
+            else:
+                r = encode_batch(rs, self.c_limbs, device=dev)
+            r = r.reshape(m.shape[:-1] + (self.c_limbs,))
             return Ciphertext(c=self._fn(m, r), level=self.level,
                               method=REGULAR)
+        if rs is None:
+            rs = self.sample_r(count)
         # digits of r mod K, made on the device from the limbs of r mod K
         k = self.pk.k
         nd = mont.n_digits_for_bits(self._r_bits, COMB_WINDOW)

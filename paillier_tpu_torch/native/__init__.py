@@ -26,6 +26,8 @@ import threading
 from pathlib import Path
 from typing import Optional, Sequence
 
+import numpy as np
+
 _SRC = Path(__file__).resolve().with_name("hostmath.cpp")
 BUILD_DIR = _SRC.parents[2] / "build" / "paillier_tpu_torch"
 _GMP_CANDIDATES = (
@@ -247,6 +249,29 @@ def modinv_batch(values: Sequence[int], mod: int, threads: int = 0) -> list:
     raw = bytes(out)
     return [int.from_bytes(raw[i * ml:(i + 1) * ml], "big")
             for i in range(len(values))]
+
+
+def invertible_mask(rows: np.ndarray, mod: int, threads: int = 0
+                    ) -> np.ndarray:
+    """Which of ``rows`` (uint8 [count, stride], each row a big-endian
+    integer) are invertible mod ``mod``, i.e. have gcd 1 with it: one
+    threaded ``pt_modinv_batch`` call, which zeroes exactly the outputs of
+    the elements without an inverse (an inverse mod m > 1 is nonzero)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    count, stride = rows.shape
+    if count == 0:
+        return np.zeros(0, dtype=bool)
+    lib = _require()
+    m = _be(mod)
+    out = np.zeros((count, len(m)), dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    threads = threads or min(count, os.cpu_count() or 1)
+    bad = lib.pt_modinv_batch(rows.ctypes.data_as(u8p), count, stride,
+                              _buf(m), len(m), out.ctypes.data_as(u8p),
+                              threads)
+    if bad < 0:
+        raise ValueError("invertible_mask failed (zero modulus?)")
+    return out.any(axis=1)
 
 
 def first_prime(cands: Sequence[int], *, safe: bool = False, reps: int = 20,

@@ -7,6 +7,14 @@ draws from: a ``random.Random`` made from a seed for reproducible runs,
 or a ``secrets.SystemRandom`` (the default of :func:`make_rng`).  The
 same generator state gives the same draws as the JAX package's
 ``paillier_tpu.ops.random``.
+
+Units in bulk (:func:`random_units_rows`, and :func:`random_units` and
+``Encryptor.encrypt`` on it) are drawn in batches, exactly: the same
+values as :func:`random_unit` a row, in row order, and the generator left
+in the same state.  A ``random.Random`` or ``secrets.SystemRandom``, or a
+subclass that overrides none of ``getrandbits``, ``random``,
+``randrange`` and ``_randbelow``, gives a round's candidates from one
+``getrandbits`` call; any other generator takes the per-row loop.
 """
 
 from __future__ import annotations
@@ -18,7 +26,11 @@ from typing import Optional
 
 import numpy as np
 
+from . import profiling
 from .profiling import spanned
+
+# What a per-row ``randrange(n)`` reads of its generator.
+_DRAW_METHODS = ("getrandbits", "random", "randrange", "_randbelow")
 
 
 def make_rng(seed: Optional[int] = None):
@@ -41,10 +53,110 @@ def random_unit(n: int, rng=None) -> int:
             return r
 
 
-@spanned("host_int", op="units")
 def random_units(n: int, count: int, rng=None) -> list[int]:
+    """``[random_unit(n, rng) for _ in range(count)]``, drawn in batches by
+    :func:`random_units_rows` (same values, same generator state)."""
+    from ..bigint import host
+    return host.limbs_to_ints(random_units_rows(n, count, rng))
+
+
+def _batchable(rng) -> bool:
+    """Whether ``rng``'s per-row draws are provably the words of one
+    ``getrandbits`` call: a ``random.Random`` or ``secrets.SystemRandom``
+    whose class and instance override none of :data:`_DRAW_METHODS`."""
+    for base in (secrets.SystemRandom, _random.Random):
+        if isinstance(rng, base):
+            return not any(getattr(type(rng), a) is not getattr(base, a)
+                           or a in vars(rng) for a in _DRAW_METHODS)
+    return False
+
+
+def _below(limbs: np.ndarray, n_row: np.ndarray, top: int) -> np.ndarray:
+    """Rows of ``limbs`` (uint16, none above limb ``top``) below ``n_row``
+    (int64, n's top limb at ``top``): that limb decides, and on a tie the
+    most significant limb that differs from n."""
+    below = limbs[:, top] < n_row[top]
+    tie = np.flatnonzero(limbs[:, top] == n_row[top])
+    if tie.size:
+        diff = limbs[tie].astype(np.int64) - n_row[None, :]
+        nz = diff != 0
+        msd = limbs.shape[1] - 1 - np.argmax(nz[:, ::-1], axis=1)
+        below[tie] = nz.any(axis=1) & (diff[np.arange(tie.size), msd] < 0)
+    return below
+
+
+def _units(limbs: np.ndarray, n: int) -> np.ndarray:
+    """Rows of ``limbs`` (uint16, each in [1, n)) with gcd(r, n) == 1:
+    one threaded native call over a big-endian buffer, else ``math.gcd``
+    a row."""
+    from ..bigint import host
+    nat = host._native()
+    if nat is None:
+        return np.array([math.gcd(r, n) == 1
+                         for r in host.limbs_to_ints(limbs)], dtype=bool)
+    return nat.invertible_mask(limbs.view(np.uint8)[:, ::-1], n)
+
+
+@spanned("host_int", op="units")
+def random_units_rows(n: int, count: int, rng=None,
+                      n_limbs: Optional[int] = None) -> np.ndarray:
+    """Uniform Z_n^* as int64 [count, n_limbs] little-endian 16-bit limbs:
+    the values of ``[random_unit(n, rng) for _ in range(count)]``, and
+    ``rng`` left in the same state.
+
+    A per-row ``randrange(n)`` takes k-bit candidates (k = n.bit_length())
+    from ``getrandbits(k)``, W = ceil(k / 32) 32-bit words each, until one
+    is below n, and :func:`random_unit` rejects 0 and non-units besides:
+    the rows are the first ``count`` accepted candidates of that stream.
+    So a round draws the candidates of the rows still missing with one
+    ``getrandbits(32 * W * need)`` (row i: words iW..iW+W-1, the top one
+    shifted down to k bits) and rejects those >= n or 0 on their limbs,
+    until the candidates left fill the missing rows; one native call then
+    rejects the non-units among them, which are drawn again after them,
+    and the rest are kept in stream order.
+    A generator that :func:`_batchable` refuses takes the per-row loop.
+    Counters: ``units.rows``, ``units.redrawn`` (>= n or 0),
+    ``units.nonunit`` (the batched path), ``units.per_row`` (the loop).
+    """
+    from ..bigint import host
     rng = rng or secrets.SystemRandom()
-    return [random_unit(n, rng) for _ in range(count)]
+    k = n.bit_length()
+    L = n_limbs or host.limbs_for_bits(k)
+    if L < host.limbs_for_bits(k):
+        raise ValueError(f"{L} limbs cannot hold a {k}-bit unit")
+    if not _batchable(rng):
+        profiling.count("units.per_row", count)
+        return host.ints_to_limbs([random_unit(n, rng) for _ in range(count)],
+                                  L).astype(np.int64)
+
+    W = (k + 31) // 32
+    width = min(L, 2 * W)                  # limbs past k bits are zero
+    n_row = host.int_to_limbs(n, 2 * W).astype(np.int64)
+    top = host.limbs_for_bits(k) - 1
+    out = np.zeros((count, L), dtype=np.int64)
+    done = redrawn = nonunit = 0
+    while done < count:
+        cand, have = [], 0           # candidates in [1, n), in stream order
+        while have < count - done:
+            need = count - done - have
+            words = np.frombuffer(
+                rng.getrandbits(32 * W * need).to_bytes(4 * W * need,
+                                                        "little"),
+                dtype="<u4").reshape(need, W).copy()
+            words[:, -1] >>= 32 * W - k
+            limbs = words.view("<u2")                   # [need, 2W]
+            cand.append(limbs[_below(limbs, n_row, top) & limbs.any(axis=1)])
+            have += len(cand[-1])
+            redrawn += need - len(cand[-1])
+        cand = np.concatenate(cand)
+        got = cand[_units(cand, n)]
+        out[done:done + len(got), :width] = got[:, :width]
+        done += len(got)
+        nonunit += len(cand) - len(got)
+    profiling.count("units.rows", count)
+    profiling.count("units.redrawn", redrawn)
+    profiling.count("units.nonunit", nonunit)
+    return out
 
 
 @spanned("host_int", op="units")

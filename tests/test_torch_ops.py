@@ -9,7 +9,9 @@ serialized bytes and key JSON must be identical, each loading in the
 other package.  Tolerance: none.
 """
 
+import math
 import random
+import secrets
 from fractions import Fraction
 
 import jax.numpy as jnp
@@ -24,7 +26,9 @@ from paillier_tpu.ops import random as jrand
 from paillier_tpu.ops import serialize as jser
 from paillier_tpu.threshold import keys as jtkeys
 from paillier_tpu_torch.core import keys as tkeys
+from paillier_tpu_torch.bigint import host as thost
 from paillier_tpu_torch.ops import encoding as tenc
+from paillier_tpu_torch.ops import profiling
 from paillier_tpu_torch.ops import random as trand
 from paillier_tpu_torch.ops import serialize as tser
 from paillier_tpu_torch.threshold import keys as ttkeys
@@ -67,6 +71,76 @@ def test_random_units_limbs_rejects_draws_above_n():
     assert np.array_equal(got, jrand.random_units_limbs(n, 64, jr))
     assert tr.getstate() == jr.getstate()
     assert all(0 < v < n for v in pt.host.limbs_to_ints(got))
+
+
+class _OwnBits(random.Random):
+    """Overrides ``getrandbits``: its draws cannot be batched exactly."""
+
+    def getrandbits(self, k):
+        return super().getrandbits(k)
+
+
+def _unit_counters():
+    c = profiling.take()["counters"]
+    return {k: c.get(f"units.{k}", 0)
+            for k in ("rows", "redrawn", "nonunit", "per_row")}
+
+
+_M127 = (1 << 127) - 1                        # a prime q
+
+
+@pytest.mark.parametrize("n,native,gen,engages", [
+    (_odd(random.Random(2048), 2048), True, random.Random, "rows"),
+    (_odd(random.Random(2047), 2047), True, random.Random, "rows"),
+    (_odd(random.Random(2000), 2000), True, random.Random, "rows"),
+    (_odd(random.Random(1025), 1025), True, random.Random, "rows"),
+    ((1 << 2047) + 0x1234567, True, random.Random, "redrawn"),
+    (3 * 5 * 7 * 11 * _M127, True, random.Random, "nonunit"),
+    (3 * 5 * 7 * 11 * _M127, False, random.Random, "nonunit"),
+    (_odd(random.Random(2048), 2048), True, _OwnBits, "per_row"),
+], ids=["k2048", "k2047", "k2000", "k1025", "above_2^2047",
+        "composite_native", "composite_gcd", "own_getrandbits"])
+def test_random_units_rows_match_the_per_row_draws(n, native, gen, engages,
+                                                   monkeypatch):
+    """k mod 32 in {0, 31, 16, 1}, half the draws >= n, a composite n with
+    small factors (native unit test and ``math.gcd``), and a generator
+    that takes the per-row loop: ``random_units_rows`` and
+    ``random_units`` give the per-row ``random_unit`` values and the JAX
+    package's ``random_units``, and leave the generator in their state."""
+    if not native:
+        monkeypatch.setattr(thost, "_native", lambda: None)
+    count, L = 200, thost.limbs_for_bits(n.bit_length()) + 3
+    rows_rng, ints_rng, per_rng, jax_rng = (gen(11) for _ in range(4))
+    before = _unit_counters()
+    rows = trand.random_units_rows(n, count, rows_rng, L)
+    ints = trand.random_units(n, count, ints_rng)
+    after = _unit_counters()
+    want = [trand.random_unit(n, per_rng) for _ in range(count)]
+    assert rows.dtype == np.int64 and rows.shape == (count, L)
+    assert thost.limbs_to_ints(rows) == ints == want
+    assert ints == jrand.random_units(n, count, jax_rng)
+    state = per_rng.getstate()
+    assert rows_rng.getstate() == ints_rng.getstate() == state
+    assert jax_rng.getstate() == state
+    assert all(0 < r < n and math.gcd(r, n) == 1 for r in want)
+    moved = {k: after[k] - before[k] for k in after}
+    batched = engages != "per_row"
+    assert moved["rows"] == (2 * count if batched else 0)
+    assert moved["per_row"] == (0 if batched else 2 * count)
+    if engages in ("redrawn", "nonunit"):
+        assert moved[engages] > 0
+
+
+def test_random_units_rows_system_random():
+    """``secrets.SystemRandom`` takes the batched path: every row a unit
+    below n."""
+    n = 3 * 5 * 7 * 11 * _M127
+    before = _unit_counters()
+    vals = thost.limbs_to_ints(
+        trand.random_units_rows(n, 300, secrets.SystemRandom()))
+    assert _unit_counters()["rows"] - before["rows"] == 300
+    assert len(vals) == 300
+    assert all(0 < r < n and math.gcd(r, n) == 1 for r in vals)
 
 
 def test_random_below_matches_jax():

@@ -26,6 +26,8 @@ from paillier_tpu.core import keys as jkeys
 from paillier_tpu.core.keygen import keygen as jkeygen
 from paillier_tpu_torch.bigint import sliding_kernel
 from paillier_tpu_torch.core.keys import decode_batch, encode_batch
+from paillier_tpu_torch.ops import profiling
+from paillier_tpu_torch.ops import random as trand
 
 torch.set_num_threads(2)
 
@@ -112,6 +114,28 @@ def test_roundtrip_sampled_randomness(keys):
     assert dec.decrypt(enc.encrypt(ms)) == ms
     limbs = encode_batch(ms, enc.m_limbs, device="cpu")   # a limb tensor
     assert dec.decrypt(enc.encrypt(limbs)) == ms
+
+
+@pytest.mark.parametrize("level", [1, 2])
+def test_sampled_randomness_is_the_per_row_draws(keys, level):
+    """``encrypt(ms)`` draws r in batches: the ciphertext of
+    ``encrypt(ms, rs)`` with rs drawn a row at a time from a twin
+    generator, which ends in the same state; ``take()`` counts the rows."""
+    bits, tsk, _ = keys
+    pk = tsk.public()
+    g = random.Random(bits * level)
+    ms = [g.randrange(pk.n ** level) for _ in range(6)]
+    before = profiling.take()["counters"].get("units.rows", 0)
+    enc = pt.Encryptor(pk, level, rng=random.Random(bits + level),
+                       device="cpu")
+    got = enc.encrypt(ms)
+    after = profiling.take()["counters"]["units.rows"]
+    twin = random.Random(bits + level)
+    rs = [trand.random_unit(pk.n, twin) for _ in ms]
+    want = pt.Encryptor(pk, level, device="cpu").encrypt(ms, rs)
+    assert torch.equal(got.c, want.c)
+    assert enc.rng.getstate() == twin.getstate()
+    assert after - before == len(ms)
 
 
 def test_vectors_level1_regular():
