@@ -92,7 +92,7 @@ non-zero):
                 Decryptor(sk, crt=True, device="cuda") on all of them:
                 every plaintext round-trips, 16 ciphertexts equal
                 (1 + m*n) * r^n mod n^2 on the host; then the driver entry
-                point dryrun.entry() (the limb route's encryption, one B4
+                point dryrun.entry() (encryption on the limb engine, one B4
                 at L = 64) on the card: all 64 rows equal the host formula.
   5. homomorphic -- level 1, batch 4096: add, sub, const_mult (shared
                 and per-element 2048-bit scalars), randomize, aggregate
@@ -240,10 +240,10 @@ non-zero):
                 level-1 Encryptor, Decryptor(crt=True) (B1 at k = 704)
                 and crt=False, level-2 Encryptor and Decryptor (B4w),
                 round trips and 8 rows of each level equal to the host
-                formula; threshold's limb branches (partial_decrypt_all,
-                combine) and the limb CRT decryption on 512 rows of
-                phases 10 and 4, with the RNS engine's width lowered to
-                2,000 bits, equal to the RNS branches; the verification
+                formula; threshold (partial_decrypt_all, combine) and the
+                CRT decryption on the limb engine on 512 rows of phases
+                10 and 4, with the RNS engine's width lowered to 2,000
+                bits, equal to the RNS engine's; the verification
                 keys mod n^2 of a random 8192-bit n (5 rows of 16,391-bit
                 exponents, B4w) equal to pow.
 Phases 4-15 each set the launch counters to 0 just before their
@@ -466,7 +466,7 @@ def parallel_rank(rank: int, world: int, p: dict) -> dict:
             mod.load()
         for key, levels in ((pk, (1, 2)), (tpk, (1,))):
             for lv in levels:
-                key.device(dev).rns(lv)
+                key.device(dev).engine(lv)
         zd.crt_plans(skey, dev)
         return (make_mesh(device_type="cuda"),
                 make_mesh(world, servers=world, device_type="cuda"))
@@ -536,6 +536,7 @@ def main() -> None:
     from paillier_tpu_torch.bigint.rns2 import (Rns2Engine,
                                                 build_fixed_base_table,
                                                 sliding_window_schedule)
+    from paillier_tpu_torch.bigint.engine import LimbEngine
     from paillier_tpu_torch.core import keygen as kg_mod
     from paillier_tpu_torch.core.keys import decode_batch, encode_batch
     from paillier_tpu_torch.ops.random import random_units
@@ -861,7 +862,7 @@ def main() -> None:
     # B1 at the main path's shapes: k = 320 (r^n * G^m mod n^2) and k = 192
     # (c^(p-1) mod p^2), BATCH rows
     t0 = time.perf_counter()
-    eng_n2 = dk.rns(1)
+    eng_n2 = dk.engine(1)
     xs = [rng.randrange(1, pk.n2) for _ in range(BATCH)]
     fs = [rng.randrange(pk.n2) for _ in range(BATCH)]
     x, fin = residues(eng_n2, xs), residues(eng_n2, fs)
@@ -922,7 +923,7 @@ def main() -> None:
     b1_other_fin(eng_p2, True)
 
     # B1 wide: k = 512 (level-2 encryption's r^(n^2) mod n^3), k = 704
-    eng_n3 = dk.rns(2)
+    eng_n3 = dk.engine(2)
     xs = [rng.randrange(1, pk.n3) for _ in range(L2_BATCH)]
     x = residues(eng_n3, xs)
     sched = sliding_window_schedule(pk.n2, 6)
@@ -946,7 +947,7 @@ def main() -> None:
 
     # k = 704: n^2 of the limb route's 4096-bit key (an 8192-bit
     # modulus), on that key's own level-1 engine, which phase 13 reuses
-    eng_w = sk4.device(dev).rns(1)
+    eng_w = sk4.device(dev).engine(1)
     n8192 = eng_w.spec.N
     if eng_w.spec.k != 704 or n8192.bit_length() != 8192:
         fail(f"{n8192.bit_length()}-bit modulus gave k={eng_w.spec.k}, "
@@ -1134,7 +1135,7 @@ def main() -> None:
     nd_r = n_digits_for_bits(r_bits, 4)
     b3_shapes = {}
     for level, rows, eng_l in ((1, BATCH, eng_n2), (2, L2_BATCH, eng_n3)):
-        table = dk.comb_table(level, 4)
+        table = dk.fixed_base(level, 4)
         hs = dk.hs_int_for_level(level)
         N = eng_l.spec.N
         es = [rng.randrange(pk.k) for _ in range(rows)]
@@ -1304,7 +1305,7 @@ def main() -> None:
     # L4_ROWS bases against plain over 32 digits; the full exponent n^2
     # (level-2 encryption's ladder) on the same rows, timed, 4 rows equal
     # to pow (computed in the worker processes)
-    ctx_w3 = sk4.device(dev).ctx_for_level(2)
+    ctx_w3 = sk4.device(dev).engine(2).ctx
     L3 = ctx_w3.n_limbs
     xl3 = limbs(x4s, L3)
     e3 = rng.getrandbits(128) | (1 << 127)
@@ -1424,7 +1425,7 @@ def main() -> None:
           f"{BATCH / t_dec:.1f} dec/s; all {BATCH} round-trip, 16 equal "
           f"the host formula")
 
-    # the driver entry point: entry()'s limb-route encryption (one B4
+    # dryrun.entry(): regular encryption on the limb engine (one B4
     # ladder at L = 64) on the card equals (1 + m*n) * r^n mod n^2
     fn_e, args_e = pt_dryrun.entry(dev)
     _, pk_e = keygen(512, random.Random(0xF1A6), device=dev)
@@ -2226,8 +2227,9 @@ def main() -> None:
     # phase 3 built (≈ 5 s of host set-up at k = 704)
     t0 = time.perf_counter()
     dk4 = sk4.device(dev)
-    if not dk4.limb_route(2) or dk4.limb_route(1):
-        fail(f"a {L4_BITS}-bit key: level 2 must take the limb route and "
+    if not isinstance(dk4.engine(2), LimbEngine) or isinstance(
+            dk4.engine(1), LimbEngine):
+        fail(f"a {L4_BITS}-bit key: level 2 must take the limb engine and "
              f"level 1 the RNS engine")
     enc4 = Encryptor(sk4, 2, device=dev, rng=random.Random(SEED + 14))
     dec4 = Decryptor(sk4, 2, device=dev)
@@ -2425,9 +2427,9 @@ def main() -> None:
     # B4w against its plain version over 32 digits (64 rows at L = 1,024
     # and 1,536, per-row moduli at 1,100 limbs, 2 rows at 5,824 limbs with
     # the table in global memory) and against the register kernel B4 at
-    # L = 768; an 8192-bit key at levels 1 and 2 on 16 rows; threshold's
-    # limb branches and the limb CRT on the 2048-bit keys of phases 10 and
-    # 4, the route forced by lowering the RNS engine's width; the
+    # L = 768; an 8192-bit key at levels 1 and 2 on 16 rows; threshold and
+    # the CRT decryption on the limb engine with the 2048-bit keys of phases
+    # 10 and 4, forced by lowering the RNS engine's width; the
     # verification keys of an 8192-bit modulus
     t15 = time.perf_counter()
 
@@ -2575,8 +2577,8 @@ def main() -> None:
     (sk8, pk8), t_kg8 = kg8.result()
     kg_pool.shutdown()
     dk8 = pk8.device(dev)
-    if not (dk8.limb_route(1) and dk8.limb_route(2)):
-        fail(f"a {W8_BITS}-bit key must take the limb route at levels 1 "
+    if not all(isinstance(dk8.engine(lv), LimbEngine) for lv in (1, 2)):
+        fail(f"a {W8_BITS}-bit key must take the limb engine at levels 1 "
              f"and 2")
     r8 = random.Random(8193)
     m8 = {lv: [r8.randrange(pk8.n ** lv) for _ in range(W8_ROWS)]
@@ -2594,8 +2596,9 @@ def main() -> None:
     # the timed calls below are the card's ladders and their glue
     L8, n8 = dk8.L, pk8.n
     for lv in (1, 2):
-        dk8.const_mul_plan(n8, lv * L8, (lv + 1) * L8)
         dk8.div_n_plan(lv * L8)
+    dk8.engine(1).one_plus_mul(encode_batch([0], L8, device=dev), n8)
+    dk8.const_mul_plan(n8, 2 * L8, 3 * L8)
     dk8.const_mul_plan(pk8.n2, L8, 3 * L8)
     dk8.fold_plan(n8, 2 * L8)
     dk8.fold_plan(pk8.n2, 3 * L8)
@@ -2641,8 +2644,9 @@ def main() -> None:
           f"{w8_line}; all round-trip, {HOST_ROWS} of each level equal the "
           f"host formula")
 
-    # threshold's limb branches and the limb CRT: the RNS engine's width
-    # lowered below p^2 of the 2048-bit keys (so n^2 is past it too)
+    # threshold and the CRT halves on the limb engine: the RNS engine's
+    # width lowered below p^2 of the 2048-bit keys (so n^2 is past it
+    # too), and fresh copies of the keys, whose engines are built under it
     sub = Ciphertext(c=tct.c[:W_THR_ROWS])
     rns_sh = [thr_dec.PartialDecryptionBatch(id=s_.id, c=s_.c[:W_THR_ROWS])
               for s_ in shares]
@@ -2650,7 +2654,9 @@ def main() -> None:
     saved_bits = rns2_mod.MAX_MODULUS_BITS
     rns2_mod.MAX_MODULUS_BITS = KEY_BITS - 48
     try:
-        if not dk_t.limb_route(1):
+        ltkeys = [dataclasses.replace(k) for k in tkeys[:3]]
+        ltpk = dataclasses.replace(tpk)
+        if not isinstance(ltpk.device(dev).engine(1), LimbEngine):
             fail("the lowered width left n^2 on the RNS engine")
         dec_l = Decryptor(skey, crt=True, device=dev)
 
@@ -2659,8 +2665,8 @@ def main() -> None:
             # 3 x 512 stacked rows, limb trees; the limb CRT: two (p^2,
             # q^2 at L = 128); B4 or B4w by mont_kernel.variant
             sh = timed("partial_decrypt_all", lambda: partial_decrypt_all(
-                tkeys[:3], sub), **b4_want(L4, W_THR_ROWS, 3))
-            out_ = timed("combine", lambda: combine(tpk, sh),
+                ltkeys, sub), **b4_want(L4, W_THR_ROWS, 3))
+            out_ = timed("combine", lambda: combine(ltpk, sh),
                          **b4_want(L4, 3 * W_THR_ROWS))
             crt_ = timed("limb CRT decrypt", lambda: dec_l.decrypt_array(
                 Ciphertext(c=ct.c[:W_THR_ROWS])),
@@ -2674,15 +2680,15 @@ def main() -> None:
         rns2_mod.MAX_MODULUS_BITS = saved_bits
     limb_line = op_line()
     if any(not torch.equal(a.c, b.c) for a, b in zip(lsh, rns_sh)):
-        fail("threshold's limb partial_decrypt_all != its RNS branch")
+        fail("partial_decrypt_all on the limb engine != on the RNS engine")
     if lout != tms[:W_THR_ROWS]:
-        fail("threshold's limb combine != the RNS branch's plaintexts")
+        fail("combine on the limb engine != the RNS engine's plaintexts")
     if not torch.equal(lcrt, rns_crt):
-        fail("crt_decrypt_kernel != crt_decrypt_kernel_mm")
+        fail("CRT decryption on limb halves != on RNS halves")
     phase("wide", f"{W_THR_ROWS} rows with the RNS engine's width lowered "
-          f"to {KEY_BITS - 48} bits: threshold's limb partial_decrypt_all "
-          f"and combine and the limb CRT equal the RNS branches; seconds: "
-          f"{limb_line}")
+          f"to {KEY_BITS - 48} bits: partial_decrypt_all, combine and the "
+          f"CRT decryption on the limb engine equal the RNS engine's; "
+          f"seconds: {limb_line}")
 
     # the verification keys of an 8192-bit (5, 3) key's shape: 5 rows of
     # one base, per-row 16,391-bit exponents, mod n^2 at 1,024 limbs

@@ -24,9 +24,8 @@ modulo an odd n, with R = 2^(16 L):
 
 The JAX module's ``mod_wide`` and ``exact_div`` are not ported: on the
 port's paths a multiply with a constant operand is one int8 Toeplitz
-product (:mod:`limbmm`).  A product of two ciphertexts is
-``Rns2Engine.mul`` where the RNS engine takes the modulus, and
-:func:`modmul` on the limb route past it (``DeviceKey.mul``).
+product (:mod:`limbmm`).  :class:`..engine.LimbEngine` serves this
+module's ladder and products through the engines' interface.
 """
 
 from __future__ import annotations

@@ -42,6 +42,7 @@ fixed-base table, per-element exponents:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -82,6 +83,10 @@ COX_EPS = 0.05
 # tests/test_torch_api.py).  Level 2 of a 4096-bit key (n^3, 12,288
 # bits) is beyond it.
 MAX_MODULUS_BITS = 8661
+
+# Distinct exponents an engine keeps the ladder data of for
+# ``pow_shared``, the least recently used dropped first.
+EXPONENT_CACHE = 64
 
 
 def _inverse_table(a: np.ndarray, m: np.ndarray) -> np.ndarray:
@@ -781,7 +786,9 @@ def converter_from_numpy(spec: Rns2Spec, ctx: Rns2Context, n_limbs: int,
 # ---------------------------------------------------------------------------
 
 class Rns2Engine:
-    """User-facing v2 engine for one modulus N on one device."""
+    """User-facing v2 engine for one modulus N on one device: the
+    interface of ``bigint.engine`` (which builds it up to
+    MAX_MODULUS_BITS) on residues [..., C]."""
 
     def __init__(self, n_modulus: int, n_limbs: int | None = None, *,
                  device):
@@ -790,7 +797,13 @@ class Rns2Engine:
         L = n_limbs or host.limbs_for_bits(n_modulus.bit_length())
         self.converter = Rns2Converter(self.spec, self.ctx, L)
         self.m2_rns = _const_row(self.ctx, I1_ENTRY, I2_ENTRY)
-        self._sched_cache: dict = {}
+        self.one = _const_row(self.ctx, I1_ONE, I2_ONE)
+        self.radix = self.spec.M
+        # ladder schedules of the exponents seen last (a key's own are a
+        # handful; a caller's scalars are not bounded)
+        self._schedule = functools.lru_cache(EXPONENT_CACHE)(
+            sliding_window_schedule)
+        self._rows: dict = {}
         self.barrett = BarrettPlan.build(n_modulus, device=device)
 
     @property
@@ -805,15 +818,18 @@ class Rns2Engine:
         return self.spec.decode(residues.cpu().numpy())
 
     def from_limbs(self, x):
-        return self.converter.from_limbs(x)
+        """limbs [..., <= L] -> residues [..., C]."""
+        return self.converter.from_limbs(vpu.fit(x, self.converter.L))
 
     def to_limbs(self, x):
         return self.converter.to_limbs(x)
 
     def to_limbs_mod(self, x):
-        """Residues of a value < 2^28 * N -> exact limbs of (value mod N):
-        one int8 product (to_limbs) plus an O(L) small-quotient Barrett."""
-        return barrett_small(self.to_limbs(x), self.barrett)
+        """Residues of a value < 2^28 * N -> exact limbs [..., L] of
+        (value mod N): one int8 product (to_limbs) plus an O(L)
+        small-quotient Barrett."""
+        return vpu.fit(barrett_small(self.to_limbs(x), self.barrett),
+                       self.converter.L)
 
     def mont_mul(self, x, y):
         """x * y * M^-1 mod N (one exact Montgomery multiply)."""
@@ -837,11 +853,33 @@ class Rns2Engine:
         if window is None:
             window = get_config().sliding_window
         if e == 0:
-            out = _const_row(self.ctx, I1_ONE, I2_ONE).expand(x.shape)
+            out = self.one.expand(x.shape)
             return out if fin is None else self.mul(out, fin)
-        key = (e, window)
-        sched = self._sched_cache.get(key)
-        if sched is None:
-            sched = sliding_window_schedule(e, window)
-            self._sched_cache[key] = sched
-        return rns2_pow_sliding(self.ctx, x, sched, window, fin=fin)
+        return rns2_pow_sliding(self.ctx, x, self._schedule(e, window),
+                                window, fin=fin)
+
+    def one_plus_mul(self, x, c: int):
+        """The integer 1 + x*c (< N) for limbs x and a host int c, made in
+        residue space (:func:`rns2_one_plus_mul`: encryption's level-1
+        G^m = 1 + m n)."""
+        row = self._rows.get(c)
+        if row is None:
+            row = self._rows[c] = torch.tensor(
+                [c % mi for mi in self.spec.b1 + self.spec.b2],
+                dtype=torch.int32, device=self.device)
+        return rns2_one_plus_mul(self.ctx, self.from_limbs(x), row)
+
+    def fixed_base(self, base_int: int, n_digits: int, window: int):
+        """The comb table of a fixed base (:func:`build_fixed_base_table`)
+        for exponents of ``n_digits`` base-2^window digits."""
+        return build_fixed_base_table(self, base_int, n_digits, window)
+
+    def pow_fixed_base(self, table, digits, window: int, fin=None):
+        """base^e for per-element digits [..., D] by the comb over
+        ``table`` (kernel B3 on a CUDA tensor), times ``fin`` when given
+        at no extra multiply."""
+        lead, C = digits.shape[:-1], table.shape[-1]
+        out = rns2_pow_fixed_base(
+            self.ctx, table, digits.reshape(-1, digits.shape[-1]), window,
+            fin=None if fin is None else fin.reshape(-1, C))
+        return out.reshape(lead + (C,))

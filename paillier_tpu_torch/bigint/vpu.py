@@ -99,6 +99,16 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (a == 0).all(dim=-1)
 
 
+def fit(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x zero-extended to ``width`` limbs (x itself, and no launch, where
+    it is that wide).  A wider x is refused: nothing here checks that
+    the limbs a cut would drop are zero."""
+    pad = width - x.shape[-1]
+    if pad < 0:
+        raise ValueError(f"{x.shape[-1]} limbs do not fit in {width}")
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
+
+
 def one_like(a: torch.Tensor) -> torch.Tensor:
     """The limbs of 1, with a's shape, dtype and device."""
     one = torch.zeros_like(a)

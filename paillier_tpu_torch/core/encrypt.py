@@ -17,12 +17,8 @@ per-element short exponents r < K = 2^(secparam/2) (reference:
 paillier.go:221-238): kernel B3 on a CUDA tensor, D multiplies and no
 squarings; G^m rides its exit multiply as in regular encryption.
 
-Where the RNS engine cannot take n^(s+1) (``DeviceKey.limb_route``: level
-2 of a 4096-bit key) the :class:`Encryptor` takes the JAX package's limb
-Montgomery kernels instead, :func:`encrypt_with_r_kernel` and
-:func:`alt_encrypt_with_r_kernel`: r^(n^s) and h_s^r on the fixed-window
-limb ladder (kernel B4 on a CUDA tensor), then one limb ``modmul`` by G^m.
-The JAX package picks its engine by backend; the port by width alone.
+Both run on the engine of n^(s+1) (``DeviceKey.engine``, chosen by
+width in ``bigint.engine.make_engine``).
 """
 
 from __future__ import annotations
@@ -38,8 +34,7 @@ from ..bigint import vpu
 from ..ops import random as prand
 from ..ops.profiling import span, spanned
 from .keys import (ALTERNATIVE, DEFAULT_LEVEL, LEVEL_ONE, LEVEL_TWO,
-                   LIMB_WINDOW, REGULAR, Ciphertext, DeviceKey, PublicKey,
-                   encode_batch)
+                   REGULAR, Ciphertext, DeviceKey, PublicKey, encode_batch)
 
 # Digit width of the comb (kernel B3's table has 2^COMB_WINDOW entries per
 # digit; the JAX default window).
@@ -77,86 +72,37 @@ def gm_binomial(dk: DeviceKey, m: torch.Tensor, level: int) -> torch.Tensor:
     return vpu.cond_sub(c, n3.expand(c.shape))[..., :3 * L]
 
 
-def encrypt_with_r_kernel(dk: DeviceKey, m: torch.Tensor, r: torch.Tensor,
-                          level: int, ns_digits, window: int = 4
-                          ) -> torch.Tensor:
-    """c = G^m * r^(n^s) mod n^(s+1) on the limb route: r^(n^s) on the
-    fixed-window limb Montgomery ladder (kernel B4 on a CUDA tensor), then
-    one ``modmul`` by G^m.  m: limbs [..., sL]; r: limbs [..., (s+1)L]
-    (< n^(s+1)); ns_digits: MSB-first base-2^window digits of n^s."""
-    ctx = dk.ctx_for_level(level)
-    gm = gm_binomial(dk, m, level)
-    rn = mont.mont_pow_digits(ctx, r, ns_digits, window)
-    return mont.modmul(ctx, gm, rn)
-
-
-def alt_encrypt_with_r_kernel(dk: DeviceKey, m: torch.Tensor,
-                              r_digits: torch.Tensor, level: int,
-                              window: int = 4) -> torch.Tensor:
-    """c = G^m * h_s^r mod n^(s+1) on the limb route, with per-element
-    short exponents r < K (r_digits: int [..., D], MSB-first
-    base-2^window): h_s broadcast over the batch on the limb ladder
-    (kernel B4 on a CUDA tensor), then one ``modmul`` by G^m."""
-    ctx = dk.ctx_for_level(level)
-    gm = gm_binomial(dk, m, level)
-    hr = mont.mont_pow_fixed_base(ctx, dk.hs_for_level(level), r_digits,
-                                  window)
-    return mont.modmul(ctx, gm, hr)
-
-
-def encrypt_with_r_rns_kernel(dk: DeviceKey, eng, m: torch.Tensor,
-                              r: torch.Tensor, level: int, ns_exp: int
-                              ) -> torch.Tensor:
-    """c = G^m * r^(n^s) mod n^(s+1): G^m by the binomial shortcut in
-    limbs, r^(n^s) on the sliding-window ladder with G^m as its exit
-    multiplicand.  m: limbs [..., sL]; r: limbs [..., (s+1)L].  The JAX
-    function multiplies G^m in afterwards (``eng.mul``); the integer, and
-    so every output limb, is the same."""
-    gm = gm_binomial(dk, m, level)
-    c_rns = eng.pow_shared(eng.from_limbs(r), ns_exp, fin=eng.from_limbs(gm))
-    return dk._widen(eng.to_limbs_mod(c_rns), level)
-
-
-def encrypt_with_r_rns_fused_kernel(dk: DeviceKey, eng, nrow: torch.Tensor,
-                                    m: torch.Tensor, r: torch.Tensor,
-                                    ns_exp: int) -> torch.Tensor:
-    """Level-1 regular encryption with G^m fused into the ladder.
-
-    m: limbs [..., L] (< n); r: limbs [..., 2L]; nrow: int32 [C] true-form
-    residues of n.  Returns ciphertext limbs [..., 2L], bit-identical to
-    the reference formula (paillier.go:206-218)."""
-    from ..bigint.rns2 import rns2_one_plus_mul
-    m_wide = torch.nn.functional.pad(m, (0, dk.L))            # width 2L
-    gm = rns2_one_plus_mul(eng.ctx, eng.from_limbs(m_wide), nrow)
-    c_rns = eng.pow_shared(eng.from_limbs(r), ns_exp, fin=gm)
-    return dk._widen(eng.to_limbs_mod(c_rns), LEVEL_ONE)
-
-
-def alt_encrypt_comb_kernel(dk: DeviceKey, eng, table: torch.Tensor,
-                            m: torch.Tensor, r_digits: torch.Tensor,
-                            level: int, nrow: torch.Tensor | None = None
-                            ) -> torch.Tensor:
-    """c = G^m * h_s^r mod n^(s+1) by the comb (no squarings).
-
-    m: limbs [..., sL]; r_digits: int32 [..., D], MSB-first
-    base-2^COMB_WINDOW digits of r < K; table:
-    ``DeviceKey.comb_table(level, COMB_WINDOW)``.  G^m
-    is made in residue space at level 1 (``nrow``: true-form residues of
-    n) and from the binomial limbs at level 2, and rides the comb's exit
-    multiply; the JAX function multiplies it in afterwards
-    (``eng.mul``).  The integer, and so every output limb, is the same."""
-    from ..bigint.rns2 import rns2_one_plus_mul, rns2_pow_fixed_base
+def _gm(dk: DeviceKey, eng, m: torch.Tensor, level: int) -> torch.Tensor:
+    """G^m in the engine's form: 1 + m*n by ``one_plus_mul`` at level 1
+    (in residue space on the RNS engine), the binomial limbs at level 2."""
     if level == LEVEL_ONE:
-        m_wide = torch.nn.functional.pad(m, (0, dk.L))        # width 2L
-        gm = rns2_one_plus_mul(eng.ctx, eng.from_limbs(m_wide), nrow)
-    else:
-        gm = eng.from_limbs(gm_binomial(dk, m, level))
-    lead = r_digits.shape[:-1]
-    C = gm.shape[-1]
-    hr = rns2_pow_fixed_base(eng.ctx, table,
-                             r_digits.reshape(-1, r_digits.shape[-1]),
-                             COMB_WINDOW, fin=gm.reshape(-1, C))
-    return dk._widen(eng.to_limbs_mod(hr.reshape(lead + (C,))), level)
+        return eng.one_plus_mul(m, dk.pk.n)
+    return eng.from_limbs(gm_binomial(dk, m, level))
+
+
+def encrypt_with_r_kernel(dk: DeviceKey, eng, m: torch.Tensor,
+                          r: torch.Tensor, level: int) -> torch.Tensor:
+    """c = G^m * r^(n^s) mod n^(s+1) on ``eng`` (the engine of n^(s+1)):
+    r^(n^s) on its shared-exponent ladder with G^m as the exit
+    multiplicand.  m: limbs [..., sL]; r: limbs [..., (s+1)L].  The JAX
+    functions multiply G^m in afterwards; the integer, and so every
+    output limb, is the same (paillier.go:206-218)."""
+    gm = _gm(dk, eng, m, level)
+    return eng.to_limbs_mod(eng.pow_shared(eng.from_limbs(r),
+                                           dk.pk.n ** level, fin=gm))
+
+
+def alt_encrypt_with_r_kernel(dk: DeviceKey, eng, base, m: torch.Tensor,
+                              r_digits: torch.Tensor, level: int
+                              ) -> torch.Tensor:
+    """c = G^m * h_s^r mod n^(s+1) on ``eng`` with per-element short
+    exponents r < K (r_digits: int [..., D], MSB-first
+    base-2^COMB_WINDOW): the fixed base ``base``
+    (``DeviceKey.fixed_base(level, COMB_WINDOW)``: the comb, kernel B3,
+    on the RNS engine) with G^m as the exit multiplicand."""
+    gm = _gm(dk, eng, m, level)
+    return eng.to_limbs_mod(eng.pow_fixed_base(base, r_digits, COMB_WINDOW,
+                                               fin=gm))
 
 
 class Encryptor:
@@ -167,9 +113,7 @@ class Encryptor:
     and 2.  ``window`` keeps the JAX signature's place and is ignored: the
     regular ladder is the sliding one, whose window is
     Config.sliding_window, the comb's digits are COMB_WINDOW bits (the
-    JAX default), and the limb route's ladders take LIMB_WINDOW.  The
-    engine (RNS, or the limb route past the RNS engine's width) is chosen
-    here, once.
+    JAX default), and the limb engine's ladders take LIMB_WINDOW.
     """
 
     def __init__(self, pk: PublicKey, level: int = DEFAULT_LEVEL,
@@ -188,36 +132,14 @@ class Encryptor:
         self.m_limbs = level * self.dk.L
         self.c_limbs = (level + 1) * self.dk.L
         self._r_bits = pk.k.bit_length() - 1      # r < K = 2^(secparam/2)
-        if self.dk.limb_route(level):
-            if method == ALTERNATIVE:
-                self.dk.hs_for_level(level)
-                self._fn = lambda m, rd: alt_encrypt_with_r_kernel(
-                    self.dk, m, rd, level, LIMB_WINDOW)
-            else:
-                ns = pk.n ** level
-                nd = mont.n_digits_for_bits(ns.bit_length(), LIMB_WINDOW)
-                ns_digits = torch.as_tensor(
-                    mont.exp_digits(ns, LIMB_WINDOW, nd),
-                    device=self.dk.device)
-                self._fn = lambda m, r: encrypt_with_r_kernel(
-                    self.dk, m, r, level, ns_digits, LIMB_WINDOW)
-            return
-        eng = self.dk.rns(level)
-        nrow = None
-        if level == LEVEL_ONE:
-            spec = eng.spec
-            nrow = torch.tensor([pk.n % mi for mi in spec.b1 + spec.b2],
-                                dtype=torch.int32, device=self.dk.device)
+        eng = self.dk.engine(level)
         if method == ALTERNATIVE:
-            table = self.dk.comb_table(level, COMB_WINDOW)
-            self._fn = lambda m, rd: alt_encrypt_comb_kernel(
-                self.dk, eng, table, m, rd, level, nrow)
-        elif level == LEVEL_ONE:
-            self._fn = lambda m, r: encrypt_with_r_rns_fused_kernel(
-                self.dk, eng, nrow, m, r, pk.n)
+            base = self.dk.fixed_base(level, COMB_WINDOW)
+            self._fn = lambda m, rd: alt_encrypt_with_r_kernel(
+                self.dk, eng, base, m, rd, level)
         else:
-            self._fn = lambda m, r: encrypt_with_r_rns_kernel(
-                self.dk, eng, m, r, level, pk.n2)
+            self._fn = lambda m, r: encrypt_with_r_kernel(
+                self.dk, eng, m, r, level)
 
     # -- randomness -------------------------------------------------------
     def sample_r(self, count: int) -> list[int]:

@@ -12,13 +12,10 @@ nested_*  : ops on (level-2, level-1) ciphertext pairs
 extract_randomness: recover the randomness r of a regular ciphertext
             with the secret key (its mod-n ladder: kernel B4)
 
-Every product of two ciphertexts runs in residue space
-(``Rns2Engine.mul`` / ``mont_mul``), or on the limb route past the RNS
-engine's width (``DeviceKey.limb_route``: level 2 of a 4096-bit key) as
-limb Montgomery products (``montgomery.modmul``, the product tree
-:func:`aggregate_kernel`) with the ladders on kernel B4; the
-ciphertexts' device is the device of the work.  Modular inverses (sub /
-nested_sub) are computed on the host in one batch.
+Every product and ladder runs on the engine of n^(s+1)
+(``DeviceKey.engine``, chosen by width in ``bigint.engine.make_engine``);
+the ciphertexts' device is the device of the work.  Modular inverses
+(sub / nested_sub) are computed on the host in one batch.
 """
 
 from __future__ import annotations
@@ -32,6 +29,7 @@ from ..bigint import host
 from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
 from ..bigint import vpu
+from ..bigint.engine import product_tree
 from ..ops import random as prand
 from ..ops.profiling import span, spanned
 from .encrypt import Encryptor, gm_binomial
@@ -118,56 +116,29 @@ def randomize(pk: PublicKey, ct: Ciphertext, rng=None) -> Ciphertext:
 # Aggregation: modular product over an axis (1M-ciphertext adds)
 # ---------------------------------------------------------------------------
 
-def aggregate_kernel(ctx: mont.MontCtx, c: torch.Tensor,
-                     r_fix: torch.Tensor) -> torch.Tensor:
-    """Product of c[m, ..., L] over axis 0 mod n by a log-depth tree of
-    limb Montgomery products (the limb route's aggregate), padded with the
-    integer 1 at odd counts.  ``r_fix`` = R^(t+1) mod n (limbs [L]) undoes
-    the R^-t of the tree with one more product (t from
-    :func:`_tree_r_power`)."""
-    x = c.to(torch.int64)
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, vpu.one_like(x[:1])], dim=0)
-        x = mont.mont_mul(ctx, x[0::2], x[1::2])
-    return mont.mont_mul(ctx, x[0], r_fix.expand(x[0].shape))
-
-
 @spanned("aggregate")
 def aggregate(pk: PublicKey, ct: Ciphertext, axis: int = 0) -> Ciphertext:
     """Homomorphic sum of a whole batch: prod_i c_i mod n^(s+1).
 
-    The product tree runs in residue space: each level is one exact RNS
-    Montgomery multiply of the pairs (pointwise channel products and two
-    int8 base extensions), padded with the integer 1 at odd counts; every
-    tree multiply divides by M, and one multiply by M^(t+1) mod N
-    restores the product (t from :func:`_tree_r_power`).  On the limb
-    route the tree is :func:`aggregate_kernel`'s, with R for M.  Plain
-    torch, as the JAX package runs it outside any Pallas kernel.
+    A log-depth tree (:func:`..bigint.engine.product_tree`) of the
+    engine's Montgomery multiply (on the RNS engine one exact multiply of
+    the pairs: pointwise channel products and two int8 base extensions),
+    padded with the integer 1 at odd counts; every tree multiply divides
+    by the radix (M, or R on the limb engine), and one multiply by
+    radix^(t+1) mod N restores the product (t from
+    :func:`_tree_r_power`).  Plain torch, as the JAX package runs it
+    outside any Pallas kernel.
     """
     dk = _dk(pk, ct)
     level = ct.level
     c = torch.movedim(ct.c, axis, 0)
-    m = c.shape[0]
-    mod = pk.modulus_for_level(level)
-    if dk.limb_route(level):
-        R = 1 << (host.LIMB_BITS * c.shape[-1])
-        r_fix = encode_batch([pow(R, _tree_r_power(m) + 1, mod)],
-                             c.shape[-1], device=c.device)[0]
-        return Ciphertext(c=aggregate_kernel(dk.ctx_for_level(level), c,
-                                             r_fix),
-                          level=level, method=MIXED)
-    eng = dk.rns(level)
-    fix = eng.encode([pow(eng.spec.M, _tree_r_power(m) + 1, mod)])[0]
-    one = eng.encode([1])[0]
-    x = eng.from_limbs(c)
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, one.expand(x[:1].shape)], dim=0)
-        x = eng.mont_mul(x[0::2], x[1::2])
-    out = eng.mont_mul(x[0], fix.expand(x[0].shape))
-    return Ciphertext(c=dk._widen(eng.to_limbs_mod(out[None]), level)[0],
-                      level=level, method=MIXED)
+    eng = dk.engine(level)
+    fix = eng.encode([pow(eng.radix, _tree_r_power(c.shape[0]) + 1,
+                          pk.modulus_for_level(level))])[0]
+    x = product_tree(eng.mont_mul, eng.from_limbs(c), eng.one)
+    out = eng.mont_mul(x, fix.expand(x.shape))
+    return Ciphertext(c=eng.to_limbs_mod(out[None])[0], level=level,
+                      method=MIXED)
 
 
 def aggregate_streaming(pk: PublicKey,

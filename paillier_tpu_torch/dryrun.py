@@ -1,8 +1,8 @@
 """Driver entry points of the port (the counterparts of the repo's
 ``__graft_entry__.py``).
 
-entry(device):        (fn, args) of the batched regular-encryption kernel
-                      of the limb route (G^m shortcut and the fixed-window
+entry(device):        (fn, args) of the batched regular encryption on the
+                      limb engine (G^m shortcut and the fixed-window
                       r^(n^s) ladder, kernel B4 on a CUDA device) at a
                       512-bit key and 64 rows: a one-card check that the
                       kernels build and run.
@@ -34,12 +34,12 @@ import torch
 
 def entry(device="cuda"):
     """(fn, example_args) for a one-card check: ``fn(m, r)`` is the
-    regular level-1 encryption of the limb route,
-    ``core.encrypt.encrypt_with_r_kernel`` at window 4, and the args are
-    64 plaintexts and their randomness as limb tensors on ``device``,
-    under a 512-bit key from ``random.Random(0xF1A6)`` (the JAX entry
-    point's key, plaintexts and r)."""
-    from .bigint import montgomery as mont
+    regular level-1 encryption ``core.encrypt.encrypt_with_r_kernel`` on
+    the limb engine of n^2 (kernel B4 at window 4 on the card), and the
+    args are 64 plaintexts and their randomness as limb tensors on
+    ``device``, under a 512-bit key from ``random.Random(0xF1A6)`` (the
+    JAX entry point's key, plaintexts and r)."""
+    from .bigint.engine import LimbEngine
     from .core.encrypt import encrypt_with_r_kernel
     from .core.keygen import keygen
     from .core.keys import LEVEL_ONE, encode_batch
@@ -49,10 +49,7 @@ def entry(device="cuda"):
     rng = random.Random(0xF1A6)
     sk, pk = keygen(512, rng, device=dev)
     dk = pk.device(dev)
-    window = 4
-    nd = mont.n_digits_for_bits(pk.n.bit_length(), window)
-    ns_digits = torch.as_tensor(mont.exp_digits(pk.n, window, nd),
-                                device=dev)
+    eng = LimbEngine(pk.n2, 2 * dk.L, device=dev)
 
     B = 64
     ms = [rng.randrange(pk.n) for _ in range(B)]
@@ -61,7 +58,7 @@ def entry(device="cuda"):
     r = encode_batch(rs, 2 * dk.L, device=dev)
 
     def fn(m, r):
-        return encrypt_with_r_kernel(dk, m, r, LEVEL_ONE, ns_digits, window)
+        return encrypt_with_r_kernel(dk, eng, m, r, LEVEL_ONE)
 
     return fn, (m, r)
 

@@ -11,12 +11,8 @@ inverse merges them.  m = (4 delta^2)^{-1} * L(c') mod n, with the exact
 division by n a Hensel product and the constant multiply an int8
 Toeplitz product (:mod:`limbmm`), as in decryption.
 
-Where n^2 is past the RNS engine (``DeviceKey.limb_route(1)``: keys over
-4,330 bits) both take the JAX package's limb branches: one
-``DeviceKey.pow_int`` a server (the limb ladder, kernel B4 or B4w), the
-Lagrange powers on the same ladder with per-row digits, and the
-positive / negative products as log-depth trees of ``montgomery.modmul``
-(:func:`_tree_modmul`).
+Both run on the engine of n^2 (``DeviceKey.engine(1)``, chosen by width
+in ``bigint.engine.make_engine``).
 
 Integer division in the Lagrange weights follows Go's Euclidean
 big.Int.Div exactly (go_div), so the weights agree bit for bit with the
@@ -34,7 +30,7 @@ import torch
 from ..bigint import host, vpu
 from ..bigint import limbmm as lm
 from ..bigint import montgomery as mont
-from ..bigint.rns2 import I1_ONE, I2_ONE
+from ..bigint.engine import product_tree
 from ..core.homomorphic import B2_WINDOW
 from ..core.keys import Ciphertext, decode_batch, encode_batch
 from ..ops.profiling import span, spanned
@@ -97,17 +93,14 @@ def partial_decrypt(tsk: ThresholdSecretKey, ct: Ciphertext
 def partial_decrypt_all(tsks: Sequence[ThresholdSecretKey], ct: Ciphertext
                         ) -> List[PartialDecryptionBatch]:
     """The partial decryptions of several servers of one key: the
-    ciphertexts' limbs become residues once, then one B1 ladder a server
-    (the JAX package runs the same ladders in one jit); on the limb route
-    one ``DeviceKey.pow_int`` a server, as the JAX package's limb branch.
-    Bit-identical to a partial_decrypt call per server."""
-    dk = tsks[0].device(ct.c.device)
-    if dk.limb_route(1):
-        return [partial_decrypt(tsk, ct) for tsk in tsks]
-    eng = dk.rns(1)
+    ciphertexts' limbs enter the engine of n^2 once, then one
+    shared-exponent ladder (B1) a server (the JAX package runs the same
+    ladders in one jit).  Bit-identical to a partial_decrypt call per
+    server."""
+    eng = tsks[0].device(ct.c.device).engine(1)
     x = eng.from_limbs(ct.c)
-    return [PartialDecryptionBatch(id=tsk.id, c=dk._widen(eng.to_limbs_mod(
-        eng.pow_shared(x, 2 * tsk.delta * tsk.share)), 1)) for tsk in tsks]
+    return [PartialDecryptionBatch(id=tsk.id, c=eng.to_limbs_mod(
+        eng.pow_shared(x, 2 * tsk.delta * tsk.share))) for tsk in tsks]
 
 
 def partial_decrypt_int(tsk: ThresholdSecretKey, c: int) -> PartialDecryption:
@@ -160,43 +153,17 @@ def lagrange_powers(tpk: ThresholdPublicKey, stacked_c: torch.Tensor,
     return powed.reshape(S, B, 2 * L)
 
 
-def _tree_modmul(ctx, x: torch.Tensor) -> torch.Tensor:
-    """Log-depth modular product over axis 0 of limbs [S, ..., L] (an odd
-    level padded with the limbs of 1), as the JAX package's."""
-    while x.shape[0] > 1:
-        if x.shape[0] % 2:
-            x = torch.cat([x, vpu.one_like(x[:1])], dim=0)
-        x = mont.modmul(ctx, x[0::2], x[1::2])
-    return x[0]
-
-
 def _combine_products(dk, powed: torch.Tensor, sel: torch.Tensor) -> tuple:
     """Masked positive / negative share products over axis 0 of
-    [S, B, 2L] -> two [B, 2L] limb tensors, as residue-space trees of
-    ``Rns2Engine.mul`` (rows of the other sign, and the odd level's
-    padding, are the residues of 1); on the limb route as limb trees of
-    ``montgomery.modmul`` mod n^2 (:func:`_tree_modmul`)."""
-    if dk.limb_route(1):
-        ctx = dk.ctx_for_level(1)
-        one = vpu.one_like(powed)
-        return (_tree_modmul(ctx, torch.where(sel, powed, one)),
-                _tree_modmul(ctx, torch.where(sel, one, powed)))
-    eng = dk.rns(1)
+    [S, B, 2L] -> two [B, 2L] limb tensors, as two trees
+    (:func:`..bigint.engine.product_tree`) of the engine's ``mul`` mod
+    n^2 (rows of the other sign, and an odd level's padding, are the
+    engine's 1)."""
+    eng = dk.engine(1)
     x = eng.from_limbs(powed)                                  # [S, B, C]
-    one = torch.cat([eng.ctx.ic1[I1_ONE], eng.ctx.ic2[I2_ONE]]).expand(
-        x.shape)
-    pos = torch.where(sel, x, one)
-    neg = torch.where(sel, one, x)
-
-    def tree(v):
-        while v.shape[0] > 1:
-            if v.shape[0] % 2:
-                v = torch.cat([v, one[:1]], dim=0)
-            v = eng.mul(v[0::2], v[1::2])
-        return v[0]
-
-    return (dk._widen(eng.to_limbs_mod(tree(pos)), 1),
-            dk._widen(eng.to_limbs_mod(tree(neg)), 1))
+    one = eng.one.expand(x.shape)
+    return tuple(eng.to_limbs_mod(product_tree(eng.mul, v, eng.one))
+                 for v in (torch.where(sel, x, one), torch.where(sel, one, x)))
 
 
 @spanned("combine")

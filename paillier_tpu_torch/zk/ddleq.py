@@ -23,17 +23,14 @@ ciphertexts.  All (proof, instance) pairs form one flat batch axis:
 
 The prover knows p and q, so each per-element ladder mod n^3 runs as two
 half-width ladders mod p^3 and mod q^3 and a Garner recombine
-(:class:`CrtN3Plans`).  Those plans derive from the factors: they live in
-this module's cache, never in the public-key ``DeviceKey``.  A secret key
-without factors proves at full width.
-
-Widths: the halves take the RNS engine, which stops at
-``rns2.MAX_MODULUS_BITS`` (8,661 bits), so ``use_crt=True`` (the default)
-runs keys of up to 5,774 bits; past them :class:`CrtN3Plans` raises in
-``make_engine``, as the JAX package's ``_CrtN3Plans`` does.  With
-``use_crt=False``, and in the verifier, every ladder and product goes
-through ``DeviceKey``, which takes every width (past the RNS engine the
-limb route: kernel B4, or B4w past 768 limbs, on a CUDA tensor).
+(``bigint.engine.CrtSplit``, from :func:`crt_plans`).  Those plans derive
+from the factors: they live in this module's cache, never in the
+public-key ``DeviceKey``.  A secret key without factors proves at full
+width.  The halves stop at keys of 5,774 bits (p^3 past
+``rns2.MAX_MODULUS_BITS``): :func:`crt_plans` refuses wider keys, as the
+JAX package's ``_CrtN3Plans`` does; ``use_crt=False``, like the verifier,
+runs every ladder and product through ``DeviceKey``, which takes every
+width.
 
 With ``mesh=`` (:func:`..parallel.make_mesh`) the flat-axis stages run
 sharded over the mesh's batch axis and are gathered, so every rank holds
@@ -57,10 +54,8 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..bigint import host
-from ..bigint import limbmm as lm
-from ..bigint import vpu
-from ..bigint.engine import make_engine
+from ..bigint import host, rns2
+from ..bigint.engine import CrtSplit
 from ..bigint.montgomery import limbs_to_digits
 from ..core.homomorphic import B2_WINDOW, extract_randomness
 from ..core.keys import (LEVEL_ONE, LEVEL_TWO, Ciphertext, PublicKey,
@@ -123,90 +118,29 @@ def _challenge_bits(c2_rep: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return sha256_bytes(buf, ln)[:, 7] & 1
 
 
-class CrtN3Plans:
-    """Prover-side CRT split of the per-element n^3 ladders.
-
-    n^3 = p^3 * q^3, so every modexp mod n^3 can run as two half-width
-    ladders (mod p^3 and mod q^3; k = 256 channels a base at 2048 bits
-    where n^3 takes 512) plus a Garner recombine.  The verifier has no
-    factors and keeps the full-width path; proofs are bit-identical
-    either way.  Each half has its own limb count (p^3 and q^3 may differ
-    in length).  Reference: ddleq.go:55-127 computes these powers at full
-    width; the split has no counterpart there.
-    """
-
-    def __init__(self, p: int, q: int, L: int, device):
-        p3, q3 = p ** 3, q ** 3
-        self.Lp = host.limbs_for_bits(p3.bit_length())
-        self.Lq = host.limbs_for_bits(q3.bit_length())
-        self.L3 = 3 * L
-        # base mod p^3 / q^3: fold the 3L-wide operand
-        self.fold_p3 = lm.FoldPlan.build(p3, 3 * L, device=device)
-        self.fold_q3 = lm.FoldPlan.build(q3, 3 * L, device=device)
-        self.br_p3 = lm.BarrettPlan.build(p3, device=device)
-        self.br_q3 = lm.BarrettPlan.build(q3, device=device)
-        self.eng_p = make_engine(p3, self.Lp, device=device)
-        self.eng_q = make_engine(q3, self.Lq, device=device)
-        # Garner: m = mp + p^3 * ((mq - mp) * (p^3)^{-1} mod q^3).  mp
-        # < p^3 may exceed q^3 severalfold, so it is folded mod q^3 first.
-        self.fold_pq = lm.FoldPlan.build(q3, self.Lp, device=device)
-        self.pinv = lm.ModMulConstPlan.build(pow(p3, -1, q3), q3, self.Lq,
-                                             device=device)
-        self.mul_p3 = lm.ConstMulPlan.build(p3, self.Lq, 3 * L,
-                                            device=device)
-        self.q3_limbs = encode_batch([q3], self.Lq, device=device)[0]
-        # group orders mod p^3 / q^3: shared host exponents reduce mod
-        # these (every DDLEQ operand is a unit)
-        self.ord_p = p * p * (p - 1)
-        self.ord_q = q * q * (q - 1)
-
-    def combine(self, mp: torch.Tensor, mq: torch.Tensor) -> torch.Tensor:
-        """Garner: [..., Lp] mod p^3 and [..., Lq] mod q^3 -> [..., 3L]."""
-        mp_q = lm.fold_mod(mp, self.fold_pq, self.br_q3)
-        diff, borrow = vpu.sub(mq, mp_q)
-        fixed, _ = vpu.add(diff, self.q3_limbs.expand(diff.shape))
-        diff = torch.where(borrow[..., None] != 0, fixed, diff)
-        t = lm.modmul_const(diff, self.pinv, self.br_q3)
-        pt = lm.const_mul(t, self.mul_p3)            # t * p^3 < n^3, exact
-        m, _ = vpu.add(pt, torch.nn.functional.pad(mp, (0, self.L3 - self.Lp)))
-        return m
-
-    def _halves(self, base: torch.Tensor, ladder) -> torch.Tensor:
-        out = []
-        for fold, br, eng, ordm in ((self.fold_p3, self.br_p3, self.eng_p,
-                                     self.ord_p),
-                                    (self.fold_q3, self.br_q3, self.eng_q,
-                                     self.ord_q)):
-            x = eng.from_limbs(lm.fold_mod(base, fold, br))
-            out.append(eng.to_limbs_mod(ladder(eng, x, ordm)))
-        return self.combine(*out)
-
-    def pow(self, base: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
-        """base^e mod n^3 for per-element MSB-first base-16 ``digits``:
-        a B2 ladder a half.  Returns [..., 3L] limbs."""
-        return self._halves(base, lambda eng, x, _: eng.pow(x, digits,
-                                                             B2_WINDOW))
-
-    def pow_shared(self, base: torch.Tensor, e: int) -> torch.Tensor:
-        """base^e mod n^3 for a shared host exponent, reduced mod each
-        half's group order p^2(p-1) / q^2(q-1): a B1 ladder a half."""
-        return self._halves(base, lambda eng, x, ordm: eng.pow_shared(
-            x, e % ordm))
-
-
-def crt_plans(sk: SecretKey, device) -> Optional[CrtN3Plans]:
-    """The prover's CRT plans of ``sk`` on ``device``, from this module's
-    cache (the few most recent keys); None when the key carries no
-    factors (p * q != n), which proves at full width."""
+def crt_plans(sk: SecretKey, device) -> Optional[CrtSplit]:
+    """The prover's split of n^3 into p^3 and q^3 (k = 256 channels a
+    half at 2048 bits, where n^3 takes 512) for ``sk`` on ``device``,
+    from this module's cache (the few most recent keys); None when the
+    key carries no factors (p * q != n), which proves at full width.
+    Raises ValueError past 5,774-bit keys.  Reference: ddleq.go:55-127
+    computes these powers at full width; the split has no counterpart
+    there."""
     if not (sk.p > 1 and sk.q > 1 and sk.p * sk.q == sk.n):
         return None
+    bits = (max(sk.p, sk.q) ** 3).bit_length()
+    if bits > rns2.MAX_MODULUS_BITS:
+        raise ValueError(
+            f"not enough sub-14-bit primes for the RNS engine of a CRT half "
+            f"({bits} bits, past {rns2.MAX_MODULUS_BITS}): DDLEQ's split "
+            f"takes keys of up to 5,774 bits; prove with use_crt=False")
     return _plans(sk.p, sk.q, host.limbs_for_bits(sk.bits),
                   torch.device(device))
 
 
 @functools.lru_cache(maxsize=4)
-def _plans(p: int, q: int, L: int, device: torch.device) -> CrtN3Plans:
-    return CrtN3Plans(p, q, L, device)
+def _plans(p: int, q: int, L: int, device: torch.device) -> CrtSplit:
+    return CrtSplit(p, q, 3, L, device=device)
 
 
 def _flat(ct: Ciphertext, L: int, device) -> torch.Tensor:
@@ -310,7 +244,7 @@ def _prove(sk, ct1, ct2, a_list, b_list, secpar, rng, use_crt,
 
     def pow_n3(base, digits):
         if crt is not None:
-            return crt.pow(base, digits)
+            return crt.pow(base, digits, B2_WINDOW)
         return dk.pow(LEVEL_TWO, base, digits, B2_WINDOW)
 
     def commit_stage(x2, y3, c1r, c2r):

@@ -77,8 +77,8 @@ def test_alt_one_comb_per_call_and_cached_table(keys, monkeypatch):
     pk = tsk.public()
     enc = pt.Encryptor(pk, pt.LEVEL_ONE, pt.ALTERNATIVE, device="cpu")
     dk = pk.device("cpu")
-    assert dk.comb_table(1, 4) is dk.comb_table(1, 4)
-    assert dk.comb_table(1, 4).shape[0] == (tsk.bits // 2 // 4) * 16
+    assert dk.fixed_base(1, 4) is dk.fixed_base(1, 4)
+    assert dk.fixed_base(1, 4).shape[0] == (tsk.bits // 2 // 4) * 16
     calls = []
     real = fixed_base_kernel.rns2_pow_fixed_base_plain
 

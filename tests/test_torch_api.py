@@ -16,6 +16,7 @@ import paillier_tpu_torch as pt
 from paillier_tpu.core import encrypt as jenc
 from paillier_tpu.core.keygen import keygen as jkeygen
 from paillier_tpu_torch.bigint import mont_kernel, rns2
+from paillier_tpu_torch.bigint.engine import LimbEngine, make_engine
 from paillier_tpu_torch.bigint.montgomery import make_mont_ctx
 
 torch.set_num_threads(2)
@@ -50,42 +51,41 @@ def _pk(bits):
                         lam=n - 1, p=3, q=5)
 
 
-def test_modulus_width_error():
+def test_modulus_width_error(monkeypatch):
     """A 4096-bit key at level 2 (n^3: 12,288 bits) is past the RNS
-    engine: the Encryptor and Decryptor build on the limb route (kernel
-    B4 at 768 limbs) and the RNS engine of that level refuses, naming the
-    key, the level, the modulus and its limit.  An 8192-bit key is past
-    it at both levels (n^2: 1,024 limbs, n^3: 1,536): its Encryptor
-    builds at levels 1 and 2 and its Decryptor at level 1 on the limb
-    route (kernel B4w; tests/test_torch_wide.py builds the rest), where
-    the RNS engine refuses both levels.  Level 1 of a 4096-bit key (n^2:
-    8192 bits) takes the RNS engine."""
+    engine: the factory gives it the limb engine (kernel B4 at 768
+    limbs), on which the Encryptor and Decryptor build, and the RNS
+    engine itself refuses the modulus.  An 8192-bit key is past it at
+    both levels (n^2: 1,024 limbs, n^3: 1,536): its Encryptor builds at
+    levels 1 and 2 and its Decryptor at level 1 on the limb engine
+    (kernel B4w; tests/test_torch_wide.py builds the rest), where the RNS
+    engine refuses both moduli.  Level 1 of a 4096-bit key (n^2: 8192
+    bits) takes the RNS engine."""
     sk = _pk(4096)
     pk = sk.public()
     dk = pk.device("cpu")
-    assert dk.limb_route(2) and not dk.limb_route(1)
     pt.Encryptor(pk, 2, device="cpu")
     pt.Decryptor(sk, 2, device="cpu")
-    with pytest.raises(ValueError, match=(
-            r"a 4096-bit key at level 2 has a 1228[6-8]-bit modulus n\^3; "
-            r"the RNS engine takes moduli of at most 8661 bits")):
-        dk.rns(2)
+    assert isinstance(dk.engine(2), LimbEngine)
+    assert isinstance(sk.device("cpu").engine(2), LimbEngine)
+    with pytest.raises(ValueError, match="not enough sub-14-bit primes"):
+        rns2.Rns2Engine(pk.n3, device="cpu")
+    with monkeypatch.context() as m:          # the choice, without the build
+        m.setattr(rns2, "Rns2Engine", lambda *a, **kw: "RNS")
+        assert make_engine(pk.n2, 2 * dk.L, device="cpu") == "RNS"
     dk.check_level(1)
     dk.check_level(2)
     big = _pk(8192)
     bpk = big.public()
     bdk = bpk.device("cpu")
-    assert bdk.limb_route(1) and bdk.limb_route(2)
     for level in (1, 2):
         bdk.check_level(level)
         assert pt.Encryptor(bpk, level, device="cpu").dk is bdk
+        assert isinstance(bdk.engine(level), LimbEngine)
+        with pytest.raises(ValueError, match="not enough sub-14-bit primes"):
+            rns2.Rns2Engine(bpk.modulus_for_level(level), device="cpu")
     pt.Decryptor(big, 1, device="cpu")
-    for level, bits in ((1, r"1638\d"), (2, r"245\d\d")):
-        with pytest.raises(ValueError, match=(
-                rf"a 8192-bit key at level {level} has a {bits}-bit modulus "
-                rf"n\^{level + 1}; the RNS engine takes moduli of at most "
-                rf"8661 bits")):
-            bdk.rns(level)
+    assert list(big.device("cpu")._engines) == [1]
     with pytest.raises(ValueError, match="level must be 1 or 2, got 3"):
         bdk.check_level(3)
 

@@ -26,6 +26,7 @@ import paillier_tpu_torch as pt
 from paillier_tpu.core.keygen import keygen as jkeygen
 from paillier_tpu.core.keys import Ciphertext as JCiphertext
 from paillier_tpu.zk import ddleq as jd
+from paillier_tpu_torch.bigint.engine import CrtSplit
 from paillier_tpu_torch.core.keys import (LEVEL_ONE, LEVEL_TWO, Ciphertext,
                                           SecretKey, decode_batch,
                                           encode_batch)
@@ -307,7 +308,7 @@ def test_crt_halves_have_their_own_limb_counts():
     sk = SecretKey(n=n, g=n + 1, h=pow(rng.randrange(2, n), 2, n),
                    k=1 << 128, bits=256, lam=(p - 1) * (q - 1), p=p, q=q)
     plans = zd.crt_plans(sk, CPU)
-    assert (plans.Lp, plans.Lq) == (25, 23)
+    assert (plans.eng_p.converter.L, plans.eng_q.converter.L) == (25, 23)
     ct1 = _nested(sk, 2, rng)
     ct2, a_l, b_l = pt.homomorphic.nested_randomize(sk, ct1, rng)
     split = zd.prove(sk, ct1, ct2, a_l, b_l, 4, random.Random(2))
@@ -327,9 +328,9 @@ def test_prover_plans_stay_out_of_the_device_key_256(case256):
     dk = sk.device(CPU)
     plans = zd.crt_plans(sk, CPU)
     assert plans is zd.crt_plans(sk, CPU)                 # cached
-    assert set(dk._rns) <= {LEVEL_ONE, LEVEL_TWO}
+    assert set(dk._engines) <= {LEVEL_ONE, LEVEL_TWO}
     secret = {sk.p, sk.q, sk.p ** 3, sk.q ** 3, sk.lam}
     for key in dk._plans:
         assert not secret & set(k for k in key if isinstance(k, int)), key
     for v in vars(dk).values():
-        assert not isinstance(v, zd.CrtN3Plans)
+        assert not isinstance(v, CrtSplit)

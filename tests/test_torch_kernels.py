@@ -1293,9 +1293,11 @@ def test_level2_4096_round_trip_on_cuda(cuda_device):
     stays on B1); 2 rows equal the host formula."""
     import paillier_tpu_torch as pt
     from paillier_tpu_torch import homomorphic as hom
+    from paillier_tpu_torch.bigint.engine import LimbEngine
     sk_, pk = pt.keygen(4096, random.Random(4096), device_primes=False)
     dk = pk.device(cuda_device)
-    assert dk.limb_route(2) and not dk.limb_route(1)
+    assert isinstance(dk.engine(2), LimbEngine)
+    assert not isinstance(dk.engine(1), LimbEngine)
     rng = random.Random(0x4096)
     ms = [rng.randrange(pk.n2) for _ in range(6)] + [0, pk.n2 - 1]
     rs = [rng.randrange(1, pk.n) for _ in ms]
@@ -1875,9 +1877,10 @@ def test_8192_bit_round_trip_on_cuda(cuda_device):
     formula (r^(n^s) by GMP where the native helper loads)."""
     import paillier_tpu_torch as pt
     from paillier_tpu_torch import native
+    from paillier_tpu_torch.bigint.engine import LimbEngine
     sk_, pk = pt.keygen(8192, random.Random(8192), device=cuda_device)
     dk = pk.device(cuda_device)
-    assert dk.limb_route(1) and dk.limb_route(2)
+    assert all(isinstance(dk.engine(lv), LimbEngine) for lv in (1, 2))
     launches = (sk.rns2_pow_sliding_b1, mx.rns2_pow_b2, mk.mont_pow_b4,
                 mk.mont_pow_b4w)
 

@@ -1,18 +1,21 @@
-"""The port's limb route (``DeviceKey.limb_route``: the levels whose
-modulus n^(s+1) is past the RNS engine's width, such as level 2 of a
-4096-bit key) against the JAX package's limb-Montgomery kernels, both on
-the CPU, and the package root's names against the JAX root's.
+"""The port's limb engine (``bigint.engine.LimbEngine``: the engine
+``make_engine`` gives a modulus past the RNS engine's width, such as
+n^3 of a 4096-bit key) against the JAX package's limb-Montgomery
+kernels, both on the CPU, and the package root's names against the JAX
+root's.
 
 The JAX package takes its limb route on its CPU backend by default, so
 ``montgomery.modmul``, ``encrypt_with_r_kernel``,
 ``alt_encrypt_with_r_kernel``, ``decrypt_kernel`` and
-``homomorphic.aggregate_kernel`` of both packages get the same seeded
-inputs at 256- and 512-bit keys, levels 1 and 2 (the port's functions
-run the plain ladder on CPU tensors).  Then the route itself: with the
-RNS engine's width limit lowered, a 256-bit key's level 2 takes the limb
-route through the port's entry points and gives the JAX package's
-ciphertexts and plaintexts, and DDLEQ proofs equal the RNS engine's; a
-4096-bit key's level 2 takes it for real
+``homomorphic.aggregate_kernel`` of the JAX package get the inputs of
+the port's ``Encryptor``, ``Decryptor`` and ``aggregate`` at 256- and
+512-bit keys, levels 1 and 2, with ``rns2.MAX_MODULUS_BITS`` lowered so
+that the factory gives the port's key the limb engine at both levels
+(the port's ladders run the plain version on CPU tensors).  Then the
+route itself: with the RNS engine's width limit lowered, a 256-bit key's
+level 2 takes the limb engine through the port's entry points and gives
+the JAX package's ciphertexts and plaintexts, and DDLEQ proofs equal the
+RNS engine's; a 4096-bit key's level 2 takes it for real
 (a 32-digit ladder on one row; a whole round trip there is ~170 s of
 plain ladder on the CPU, so it runs only on the card).  Tolerance: exact
 (limbs compared as uint32, values as ints).
@@ -36,10 +39,8 @@ from paillier_tpu.core import homomorphic as jhom
 from paillier_tpu.core.keygen import keygen as jkeygen
 from paillier_tpu_torch import homomorphic as hom
 from paillier_tpu_torch.bigint import host, rns2
-from paillier_tpu_torch.bigint import limbmm as lm
 from paillier_tpu_torch.bigint import montgomery as tmont
-from paillier_tpu_torch.core import decrypt as tdec
-from paillier_tpu_torch.core import encrypt as tenc
+from paillier_tpu_torch.bigint.engine import LimbEngine
 from paillier_tpu_torch.core.keys import decode_batch, encode_batch
 from paillier_tpu_torch.zk import ddleq as zd
 
@@ -93,6 +94,19 @@ def keys(request):
     return tsk, jsk
 
 
+@pytest.fixture
+def limb_keys(keys, monkeypatch):
+    """The port's key of ``keys`` afresh (its DeviceKey builds its
+    engines anew) with the RNS engine's limit below n^2, so that the
+    factory gives both levels the limb engine; and the JAX key."""
+    monkeypatch.setattr(rns2, "MAX_MODULUS_BITS", 64)
+    tsk, jsk = keys
+    tsk = dataclasses.replace(tsk)
+    dk = tsk.device(CPU)
+    assert all(isinstance(dk.engine(lv), LimbEngine) for lv in (1, 2))
+    return tsk, jsk
+
+
 def _inputs(sk, level, seed):
     """ROWS plaintexts (0 and n^s - 1 among them), units r, short r < K."""
     rng = random.Random(seed)
@@ -111,9 +125,8 @@ def test_modmul_vs_jax(keys, level):
     rng = random.Random(level)
     a = [rng.randrange(mod) for _ in range(ROWS)] + [0, mod - 1]
     b = [rng.randrange(mod) for _ in range(ROWS)] + [mod - 1, mod - 1]
-    got = tmont.modmul(tsk.device(CPU).ctx_for_level(level),
-                       encode_batch(a, W, device=CPU),
-                       encode_batch(b, W, device=CPU))
+    got = LimbEngine(mod, W, device=CPU).mul(encode_batch(a, W, device=CPU),
+                                             encode_batch(b, W, device=CPU))
     want = jmont.modmul(jsk.device().ctx_for_level(level), _jl(a, W),
                         _jl(b, W))
     assert np.array_equal(_u32(got), np.asarray(want))
@@ -121,78 +134,75 @@ def test_modmul_vs_jax(keys, level):
 
 
 @pytest.mark.parametrize("level", [1, 2])
-def test_encrypt_kernels_vs_jax(keys, level):
-    """encrypt_with_r_kernel and alt_encrypt_with_r_kernel: the JAX
-    functions' limbs, and the reference formulas."""
-    tsk, jsk = keys
-    dk, jdk = tsk.device(CPU), jsk.device()
+def test_encrypt_kernels_vs_jax(limb_keys, level):
+    """Encryptor(pk, level) on the limb engine, regular and alternative:
+    the limbs of the JAX functions encrypt_with_r_kernel and
+    alt_encrypt_with_r_kernel, and the reference formulas."""
+    tsk, jsk = limb_keys
+    pk, jdk = tsk.public(), jsk.device()
     ms, rs, ks = _inputs(tsk, level, 0xE0 + level)
-    L, s = dk.L, level
+    L, s = tsk.device(CPU).L, level
     ns = tsk.n ** s
     nd = tmont.n_digits_for_bits(ns.bit_length(), 4)
-    dig = tmont.exp_digits(ns, 4, nd)
-    got = tenc.encrypt_with_r_kernel(
-        dk, encode_batch(ms, s * L, device=CPU),
-        encode_batch(rs, (s + 1) * L, device=CPU), level,
-        torch.as_tensor(dig), 4)
+    got = pt.Encryptor(pk, level, device=CPU).encrypt(ms, rs).c
     want = jenc.encrypt_with_r_kernel(jdk, _jl(ms, s * L),
                                       _jl(rs, (s + 1) * L), level,
-                                      jnp.asarray(dig), 4)
+                                      jnp.asarray(tmont.exp_digits(ns, 4, nd)),
+                                      4)
     assert np.array_equal(_u32(got), np.asarray(want))
     N = tsk.modulus_for_level(level)
     assert decode_batch(got) == [pow(1 + tsk.n, m, N) * pow(r, ns, N) % N
                                  for m, r in zip(ms, rs)]
+    enc = pt.Encryptor(pk, level, "alternative", device=CPU)
+    got = enc.encrypt(ms, ks).c
     kd = tmont.n_digits_for_bits(tsk.k.bit_length() - 1, 4)
     rd = np.stack([tmont.exp_digits(k, 4, kd) for k in ks])
-    got = tenc.alt_encrypt_with_r_kernel(
-        dk, encode_batch(ms, s * L, device=CPU), torch.as_tensor(rd), level)
     want = jenc.alt_encrypt_with_r_kernel(jdk, _jl(ms, s * L),
                                           jnp.asarray(rd), level)
     assert np.array_equal(_u32(got), np.asarray(want))
-    hs = dk.hs_int_for_level(level)
+    hs = enc.dk.hs_int_for_level(level)
     assert decode_batch(got) == [pow(1 + tsk.n, m, N) * pow(hs, k, N) % N
                                  for m, k in zip(ms, ks)]
-    assert decode_batch(dk.hs_for_level(level)[None]) == [hs]
+    assert decode_batch(enc.dk.fixed_base(level, 4)[None]) == [hs]
 
 
 @pytest.mark.parametrize("level", [1, 2])
-def test_decrypt_kernel_vs_jax(keys, level):
-    """decrypt_kernel (c^lambda on the limb ladder, then the recovery):
-    the JAX function's plaintext limbs, and the plaintexts."""
-    tsk, jsk = keys
-    dk, jdk = tsk.device(CPU), jsk.device()
+def test_decrypt_kernel_vs_jax(limb_keys, level):
+    """Decryptor(sk, level) on the limb engine (c^lambda on the limb
+    ladder, then the recovery): the JAX decrypt_kernel's plaintext
+    limbs, and the plaintexts."""
+    tsk, jsk = limb_keys
+    jdk = jsk.device()
     ms, rs, _ = _inputs(tsk, level, 0xD0 + level)
-    N, s, L = tsk.modulus_for_level(level), level, dk.L
+    N, s, L = tsk.modulus_for_level(level), level, tsk.device(CPU).L
     ns = tsk.n ** s
     cs = [pow(1 + tsk.n, m, N) * pow(r, ns, N) % N for m, r in zip(ms, rs)]
     nd = tmont.n_digits_for_bits(tsk.lam.bit_length(), 4)
-    lam_d = tmont.exp_digits(tsk.lam, 4, nd)
-    mu_int = pow(tsk.lam, -1, ns)
-    mu = lm.ModMulConstPlan.build(mu_int, ns, s * L, device=CPU)
-    got = tdec.decrypt_kernel(dk, encode_batch(cs, (s + 1) * L, device=CPU),
-                              level, torch.as_tensor(lam_d), mu, 4)
+    got = pt.Decryptor(tsk, level, device=CPU).decrypt_array(pt.Ciphertext(
+        c=encode_batch(cs, (s + 1) * L, device=CPU), level=level))
     want = jdec.decrypt_kernel(
-        jdk, _jl(cs, (s + 1) * L), level, jnp.asarray(lam_d),
-        _jl([mu_int], s * L)[0],
+        jdk, _jl(cs, (s + 1) * L), level,
+        jnp.asarray(tmont.exp_digits(tsk.lam, 4, nd)),
+        _jl([pow(tsk.lam, -1, ns)], s * L)[0],
         _jl([tsk.n * pow(2, -1, tsk.n2) % tsk.n2], 2 * L)[0], 4)
     assert np.array_equal(_u32(got), np.asarray(want))
     assert decode_batch(got) == ms
 
 
 @pytest.mark.parametrize("level", [1, 2])
-def test_aggregate_kernel_vs_jax(keys, level):
-    """aggregate_kernel over ROWS rows (odd, so the tree pads) with the
-    R^(t+1) fix: the JAX function's limbs, and the product."""
-    tsk, jsk = keys
-    dk, jdk = tsk.device(CPU), jsk.device()
+def test_aggregate_kernel_vs_jax(limb_keys, level):
+    """aggregate on the limb engine over ROWS rows (odd, so the tree
+    pads) with its R^(t+1) fix: the limbs of the JAX aggregate_kernel,
+    and the product."""
+    tsk, jsk = limb_keys
+    jdk = jsk.device()
     N = tsk.modulus_for_level(level)
-    W = dk.limbs_for_level(level)
+    W = tsk.device(CPU).limbs_for_level(level)
     rng = random.Random(0xA6 + level)
     cs = [rng.randrange(1, N) for _ in range(ROWS)]
+    got = hom.aggregate(tsk, pt.Ciphertext(
+        c=encode_batch(cs, W, device=CPU), level=level)).c
     fix = pow(1 << (16 * W), hom._tree_r_power(ROWS) + 1, N)
-    got = hom.aggregate_kernel(dk.ctx_for_level(level),
-                               encode_batch(cs, W, device=CPU),
-                               encode_batch([fix], W, device=CPU)[0])
     want = jhom.aggregate_kernel(jdk.ctx_for_level(level), _jl(cs, W),
                                  _jl([fix], W)[0])
     assert np.array_equal(_u32(got), np.asarray(want))
@@ -218,36 +228,36 @@ def _sk(bits, seed):
 def test_width_rule_and_errors():
     """The engine of a level is chosen by its modulus' width alone: a
     4096-bit key takes the RNS engine at level 1 (n^2: 8,192 bits) and
-    the limb route at level 2 (n^3: 12,288 bits, B4's 768 limbs), where
-    the Encryptor and Decryptor build and the RNS engine still refuses.
-    An 8192-bit key takes the limb route at both levels (n^2: 1,024
-    limbs, n^3: 1,536, kernel B4w's widths): its Encryptor builds at
-    levels 1 and 2 (regular; the alternative one's host pow of h_2 at
-    24,576 bits is left to the card) and its Decryptor at level 1, and
-    neither level builds an RNS engine."""
+    the limb engine at level 2 (n^3: 12,288 bits, B4's 768 limbs), where
+    the Encryptor and Decryptor build and the RNS engine itself refuses
+    the modulus.  An 8192-bit key takes the limb engine at both levels
+    (n^2: 1,024 limbs, n^3: 1,536, kernel B4w's widths): its Encryptor
+    builds at levels 1 and 2 (regular; the alternative one's host pow of
+    h_2 at 24,576 bits is left to the card) and its Decryptor at level
+    1, and neither level builds an RNS engine."""
     sk = _sk(4096, 1)
     pk = sk.public()
     dk = pk.device(CPU)
-    assert not dk.limb_route(1) and dk.limb_route(2)
     dk.check_level(1)
     dk.check_level(2)
     for method in ("regular", "alternative"):
         assert pt.Encryptor(pk, 2, method, device=CPU).dk is dk
     pt.Decryptor(sk, 2, device=CPU)
-    assert not dk._rns and not sk.device(CPU)._rns
-    with pytest.raises(ValueError, match=r"RNS engine takes moduli of at "
-                       r"most 8661 bits"):
-        dk.rns(2)
+    assert isinstance(dk.engine(2), LimbEngine)
+    assert isinstance(sk.device(CPU).engine(2), LimbEngine)
+    assert 1 not in dk._engines
+    with pytest.raises(ValueError, match="not enough sub-14-bit primes"):
+        rns2.Rns2Engine(pk.n3, device=CPU)
     big = _sk(8192, 2)
     bpk = big.public()
     bdk = bpk.device(CPU)
-    assert bdk.limb_route(1) and bdk.limb_route(2)
-    assert [bdk.ctx_for_level(lv).n_limbs for lv in (1, 2)] == [1024, 1536]
     for level in (1, 2):
         bdk.check_level(level)
         assert pt.Encryptor(bpk, level, device=CPU).dk is bdk
     assert pt.Decryptor(big, 1, device=CPU).dk is big.device(CPU)
-    assert not bdk._rns and not big.device(CPU)._rns
+    assert [bdk.engine(lv).L for lv in (1, 2)] == [1024, 1536]
+    for d in (bdk, big.device(CPU)):
+        assert all(isinstance(e, LimbEngine) for e in d._engines.values())
 
 
 def test_4096_level2_pow_and_mul_take_the_limb_ladder(monkeypatch):
@@ -276,7 +286,7 @@ def test_4096_level2_pow_and_mul_take_the_limb_ladder(monkeypatch):
     assert calls == [768, 768]
     yl = encode_batch([y], 768, device=CPU)
     assert decode_batch(dk.mul(2, xl, yl)) == [x * y % pk.n3]
-    assert not dk._rns
+    assert list(dk._engines) == [2]
 
 
 @pytest.fixture(scope="module")
@@ -289,13 +299,17 @@ def routed_keys():
 @pytest.fixture
 def routed(routed_keys, monkeypatch):
     """A 256-bit key of both packages whose level 2 (n^3: 768 bits) takes
-    the port's limb route while the RNS engine's limit is lowered to 700
-    bits; level 1 (n^2: 512 bits) keeps the RNS engine."""
+    the port's limb engine while the RNS engine's limit is lowered to 700
+    bits; level 1 (n^2: 512 bits) keeps the RNS engine.  The port's key
+    is a fresh copy, whose DeviceKey builds its engines under the
+    limit."""
     monkeypatch.setattr(rns2, "MAX_MODULUS_BITS", 700)
-    tsk, _ = routed_keys
+    tsk, jsk = routed_keys
+    tsk = dataclasses.replace(tsk)
     dk = tsk.device(CPU)
-    assert dk.limb_route(2) and not dk.limb_route(1)
-    return routed_keys
+    assert isinstance(dk.engine(2), LimbEngine)
+    assert isinstance(dk.engine(1), rns2.Rns2Engine)
+    return tsk, jsk
 
 
 def test_routed_level2_entry_points(routed):
@@ -323,7 +337,7 @@ def test_routed_level2_entry_points(routed):
     assert got == [(a + b) % tpk.n for a, b in zip(xs, ys)]
     got = pt.nested_decrypt(tsk, hom.nested_sub(tpk, nx, yct), device=CPU)
     assert got == [(a - b) % tpk.n for a, b in zip(xs, ys)]
-    assert 2 not in tpk.device(CPU)._rns
+    assert isinstance(tpk.device(CPU).engine(2), LimbEngine)
 
 
 def test_routed_level2_homomorphic(routed):
@@ -370,19 +384,19 @@ def test_routed_level2_homomorphic(routed):
 
 def test_routed_ddleq_equals_the_rns_proofs(routed_keys, monkeypatch):
     """DDLEQ's level-2 ladders and products go through DeviceKey, so on
-    the limb route (the full-width prover and the verifier) the proofs
+    the limb engine (the full-width prover and the verifier) the proofs
     are bit-identical to the RNS engine's from the same seed and
     verify."""
-    tsk, _ = routed_keys
+    tsk = dataclasses.replace(routed_keys[0])            # a fresh DeviceKey
     pk = tsk.public()
     ct1 = pt.nested_encrypt(pk, [5, 6], random.Random(1), device=CPU)
     ct2, a, b = hom.nested_randomize(pk, ct1, random.Random(2))
     want = zd.prove(tsk, ct1, ct2, a, b, 4, random.Random(3), use_crt=False)
+    assert isinstance(tsk.device(CPU).engine(2), rns2.Rns2Engine)
     monkeypatch.setattr(rns2, "MAX_MODULUS_BITS", 700)
     sk2 = dataclasses.replace(tsk)                      # a fresh DeviceKey
-    assert sk2.device(CPU).limb_route(2)
     got = zd.prove(sk2, ct1, ct2, a, b, 4, random.Random(3), use_crt=False)
     for f in ("x", "y", "alpha", "e", "f"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert zd.verify(sk2.public(), ct1, ct2, got) == [True, True]
-    assert 2 not in sk2.device(CPU)._rns
+    assert isinstance(sk2.device(CPU).engine(2), LimbEngine)

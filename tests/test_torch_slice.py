@@ -194,7 +194,7 @@ def test_device_is_explicit_and_cpu_never_launches(keys):
         pt.DeviceKey(pk)
     dk = pk.device("cpu")
     assert dk is pk.device(torch.device("cpu"))
-    assert dk.rns(pt.LEVEL_ONE).ctx.device.type == "cpu"
+    assert dk.engine(pt.LEVEL_ONE).ctx.device.type == "cpu"
     before = sliding_kernel.rns2_pow_sliding_b1.launches
     ct = pt.Encryptor(pk, rng=random.Random(3), device="cpu").encrypt([7])
     assert ct.c.device.type == "cpu"
@@ -202,8 +202,13 @@ def test_device_is_explicit_and_cpu_never_launches(keys):
 
 
 def test_level_widen(keys):
+    """The engine of a level takes limbs narrower than the ciphertext
+    width and gives its results at that width."""
     _, tsk, _ = keys
     dk = tsk.device("cpu")
+    eng = dk.engine(pt.LEVEL_ONE)
     x = torch.ones((2, 3), dtype=torch.int64)
-    assert dk._widen(x, pt.LEVEL_ONE).shape == (2, 2 * dk.L)
+    got = eng.to_limbs_mod(eng.from_limbs(x))
+    assert got.shape == (2, 2 * dk.L)
+    assert decode_batch(got) == [1 + (1 << 16) + (1 << 32)] * 2
     assert dk.limbs_for_level(2) == 3 * dk.L

@@ -12,22 +12,22 @@ keys run, against the JAX package on the CPU.
   shared-memory layout (clusters of blocks included), against Python
   integers, the JAX package's ``pallas_kernels._mont_mul`` and the plain
   version.
-* Threshold decryption's limb branches (``partial_decrypt_all``: one
-  ``DeviceKey.pow_int`` a server; ``combine``'s limb product trees) at
-  64- and 128-bit threshold keys, with ``rns2.MAX_MODULUS_BITS`` lowered
-  so that n^2 takes the limb route: equal to the port's own RNS
-  branches at both widths and to the JAX package's functions (which
-  take their limb branches on the CPU backend) at 64 bits.
-* The limb CRT decryption ``crt_decrypt_kernel`` through
-  ``Decryptor(crt=True)`` with the limit lowered below p^2, against
-  ``crt_decrypt_kernel_mm`` at 256- and 512-bit keys and against the JAX
-  package's ``crt_decrypt_kernel`` at 256 bits.
+* Threshold decryption on the limb engine of n^2 (``partial_decrypt_all``
+  and ``combine``'s product trees) at 64- and 128-bit threshold keys,
+  with ``rns2.MAX_MODULUS_BITS`` lowered so that the factory gives n^2
+  the limb engine: equal to the port's own RNS engine at both widths and
+  to the JAX package's functions (which take their limb branches on the
+  CPU backend) at 64 bits.
+* ``Decryptor(crt=True)`` with the limit lowered below p^2, so that its
+  halves take the limb engine, against its halves on the RNS engine at
+  256- and 512-bit keys and against the JAX package's
+  ``crt_decrypt_kernel`` at 256 bits.
 
 The JAX package compiles each of its functions at each width (≈ 12 s a
 threshold width, 12-15 s a CRT width on this suite's CPU), so it runs
 at one width of each.
-* DDLEQ's CRT plans past 5,774-bit keys: both packages raise in
-  ``make_engine`` (p^3 past 8,661 bits).
+* DDLEQ's CRT plans past 5,774-bit keys: both packages raise (p^3 past
+  8,661 bits), the port in ``crt_plans``'s guard.
 * Full width: an 8192-bit key (fixed 4096-bit primes) builds its
   Encryptor and Decryptor at levels 1 and 2, crt=True and False, and
   its level-2 ladder (L = 1,536) equals pow on one row over 4 digits.
@@ -37,6 +37,7 @@ the CPU); B4w itself runs in tests/test_torch_kernels.py on the card.
 Tolerance: exact (limbs as uint32, values as ints).
 """
 
+import dataclasses
 import random
 
 import jax
@@ -54,6 +55,7 @@ from paillier_tpu.zk import ddleq as jzd
 from paillier_tpu_torch.bigint import host, rns2
 from paillier_tpu_torch.bigint import mont_kernel as mk
 from paillier_tpu_torch.bigint import montgomery as tmont
+from paillier_tpu_torch.bigint.engine import LimbEngine, product_tree
 from paillier_tpu_torch.core import decrypt as tdec
 from paillier_tpu_torch.core.keys import decode_batch, encode_batch
 from paillier_tpu_torch.ops import random as prand
@@ -624,7 +626,7 @@ def thr(request):
     ct = pt.Encryptor(tpk, rng=rng, device=CPU).encrypt(ms)
     servers = [keys[0], keys[2], keys[4]]
     rns_parts = ttdec.partial_decrypt_all(servers, ct)
-    assert not tpk.device(CPU).limb_route(1)
+    assert isinstance(tpk.device(CPU).engine(1), rns2.Rns2Engine)
     fields = {f: getattr(keys[0], f) for f in (
         "n", "g", "h", "k", "bits", "l", "t", "v", "vi")}
     jservers = [jtkeys.ThresholdSecretKey(**fields, id=k.id, share=k.share)
@@ -640,34 +642,35 @@ def thr(request):
 
 
 def test_threshold_limb_branches(thr, monkeypatch):
-    """With the RNS engine's limit below n^2, partial_decrypt_all runs one
-    DeviceKey.pow_int a server and combine its limb trees (the RNS engine
-    is never asked for): the partial decryptions equal the RNS branch's
-    limbs (and the JAX package's at 64 bits), the plaintexts equal the
-    RNS branch's, the messages (and the JAX package's); the limb trees'
-    positive / negative products equal the residue trees'."""
+    """With the RNS engine's limit below n^2, fresh copies of the keys
+    take the limb engine of n^2: partial_decrypt_all runs one
+    shared-exponent limb ladder a server and combine its limb trees.  The
+    partial decryptions equal the RNS engine's limbs (and the JAX
+    package's at 64 bits), the plaintexts equal the RNS engine's, the
+    messages (and the JAX package's); the limb trees' positive / negative
+    products equal the residue trees'; an odd count of rows pads the
+    limb tree with the limbs of 1."""
     tpk, ct = thr["tpk"], thr["ct"]
-    dk = tpk.device(CPU)
-    L = dk.L
+    L = tpk.device(CPU).L
     stacked = torch.stack([p.c for p in thr["rns_parts"]])
     exps = [abs(2 * ttdec.compute_lambda(tpk, s.id, [1, 3, 5]))
             for s in thr["servers"]]
     sel = torch.tensor([ttdec.compute_lambda(tpk, s.id, [1, 3, 5]) > 0
                         for s in thr["servers"]])[:, None, None]
     powed = ttdec.lagrange_powers(tpk, stacked, exps)
-    rns_prod = ttdec._combine_products(dk, powed, sel)
+    rns_prod = ttdec._combine_products(tpk.device(CPU), powed, sel)
     monkeypatch.setattr(rns2, "MAX_MODULUS_BITS", thr["bits"])
-    assert dk.limb_route(1)
-
-    def no_rns(level):
-        raise AssertionError("the limb route asked for the RNS engine")
-
-    monkeypatch.setattr(dk, "rns", no_rns)
-    parts = ttdec.partial_decrypt_all(thr["servers"], ct)
+    ltpk = dataclasses.replace(tpk)
+    servers = [dataclasses.replace(k) for k in thr["servers"]]
+    dk = ltpk.device(CPU)
+    eng = dk.engine(1)
+    assert isinstance(eng, LimbEngine)
+    parts = ttdec.partial_decrypt_all(servers, ct)
+    assert isinstance(servers[0].device(CPU).engine(1), LimbEngine)
     for got, rp in zip(parts, thr["rns_parts"]):
         assert got.id == rp.id and got.c.shape[-1] == 2 * L
         assert torch.equal(got.c, rp.c)
-    ms = ttdec.combine(tpk, parts)
+    ms = ttdec.combine(ltpk, parts)
     assert ms == thr["rns_ms"] == thr["ms"]
     if thr["jparts"] is not None:
         for got, jp in zip(parts, thr["jparts"]):
@@ -677,8 +680,7 @@ def test_threshold_limb_branches(thr, monkeypatch):
     limb_prod = ttdec._combine_products(dk, powed, sel)
     for got, want in zip(limb_prod, rns_prod):
         assert torch.equal(got, want)
-    # an odd count of rows pads the tree with the limbs of 1
-    three = ttdec._tree_modmul(dk.ctx_for_level(1), powed)
+    three = product_tree(eng.mul, powed, eng.one)
     n2 = tpk.n2
     want = [a * b * c % n2 for a, b, c in zip(
         *(decode_batch(powed[i]) for i in range(3)))]
@@ -692,27 +694,28 @@ def test_threshold_limb_branches(thr, monkeypatch):
 @pytest.mark.parametrize("bits", [256, 512])
 def test_limb_crt_decrypt_vs_jax(bits, monkeypatch):
     """With the RNS engine's limit below p^2, Decryptor(crt=True) takes
-    crt_decrypt_kernel (the limb ladders mod p^2 and q^2) and gives the
-    limbs of crt_decrypt_kernel_mm (the RNS halves, with the limit
-    restored) and, at 256 bits, of the JAX package's crt_decrypt_kernel
-    (its Decryptor with crt=True on the limb engine)."""
+    the limb engine for its halves (one limb ladder mod p^2 and one mod
+    q^2) and gives the limbs of its halves on the RNS engine (built
+    before the limit was lowered) and, at 256 bits, of the JAX package's
+    crt_decrypt_kernel (its Decryptor with crt=True on the limb
+    engine)."""
     sk, pk = pt.keygen(bits, random.Random(bits + 7), device=CPU)
     rng = random.Random(bits)
     ms = [rng.randrange(pk.n) for _ in range(4)] + [0, pk.n - 1]
     ct = pt.Encryptor(pk, rng=rng, device=CPU).encrypt(ms)
     mm = tdec.Decryptor(sk, crt=True, device=CPU).decrypt_array(ct)
     calls = []
-    kernel = tdec.crt_decrypt_kernel
+    ladder = LimbEngine.pow_shared
 
-    def counted(*a, **kw):
-        calls.append(1)
-        return kernel(*a, **kw)
+    def counted(eng, x, e, **kw):
+        calls.append((eng.L, e))
+        return ladder(eng, x, e, **kw)
 
-    monkeypatch.setattr(tdec, "crt_decrypt_kernel", counted)
+    monkeypatch.setattr(LimbEngine, "pow_shared", counted)
     monkeypatch.setattr(rns2, "MAX_MODULUS_BITS", bits - 8)
     dec = tdec.Decryptor(sk, crt=True, device=CPU)
     got = dec.decrypt_array(ct)
-    assert calls == [1]
+    assert calls == [(bits // 16, sk.p - 1), (bits // 16, sk.q - 1)]
     assert torch.equal(got, mm)
     assert dec.decrypt(ct) == ms
     if bits == 256:
@@ -729,9 +732,9 @@ def test_limb_crt_decrypt_vs_jax(bits, monkeypatch):
 
 def test_ddleq_crt_plans_past_5774_bits_raise_in_both():
     """A 5,776-bit key's p^3 (8,664 bits) is past the RNS engine's 8,661:
-    the prover's CRT plans raise in make_engine in both packages, before
-    any ladder runs (use_crt=False, the full-width path, is what takes
-    such a key)."""
+    the prover's CRT plans raise in both packages (the port in
+    ``crt_plans``'s guard), before any ladder runs (use_crt=False, the
+    full-width path, is what takes such a key)."""
     rng = random.Random(5776)
     p, q = (rng.getrandbits(2888) | 3 << 2886 | 1 for _ in range(2))
     n = p * q
@@ -766,22 +769,24 @@ def test_8192_bit_key_builds_at_both_levels(key8192):
     limbs, n^3: 1,536, both B4w on the card): the Encryptor and the
     Decryptor build at levels 1 and 2, and Decryptor(crt=True) at level
     1 with its p^2 / q^2 halves (8,192 bits) on the RNS engine at
-    k = 704.  No RNS engine of n^2 or n^3 is built."""
+    k = 704.  No RNS engine of n^2 or n^3 is built, and the RNS engine
+    itself refuses both moduli."""
     sk = key8192
     pk = sk.public()
     dk = pk.device(CPU)
-    assert dk.limb_route(1) and dk.limb_route(2)
     assert [mk.variant(dk.limbs_for_level(lv)) for lv in (1, 2)] == [
         "B4w", "B4w"]
     for level in (1, 2):
         assert pt.Encryptor(pk, level, device=CPU).dk is dk
         assert pt.Decryptor(sk, level, device=CPU).level == level
     dec = pt.Decryptor(sk, 1, crt=True, device=CPU)
-    assert dec.crt and not sk.device(CPU)._rns and not dk._rns
-    for level, bits in ((1, "1638"), (2, "2457")):
-        with pytest.raises(ValueError, match=rf"a 8192-bit key at level "
-                           rf"{level} has a {bits}\d-bit modulus"):
-            dk.rns(level)
+    assert dec.crt
+    for d in (dk, sk.device(CPU)):
+        assert sorted(d._engines) == [1, 2]
+        assert all(isinstance(e, LimbEngine) for e in d._engines.values())
+    for level in (1, 2):
+        with pytest.raises(ValueError, match="not enough sub-14-bit primes"):
+            rns2.Rns2Engine(pk.modulus_for_level(level), device=CPU)
 
 
 def test_8192_bit_level2_ladder_at_full_width(key8192):
@@ -794,5 +799,5 @@ def test_8192_bit_level2_ladder_at_full_width(key8192):
     x = rng.randrange(pk.n3)
     e = rng.getrandbits(16) | 1 << 15
     got = dk.pow(2, _limbs([x], 1536), tmont.exp_digits(e, 4, 4))
-    assert dk.ctx_for_level(2).n_limbs == 1536
+    assert dk.engine(2).L == 1536
     assert decode_batch(got) == [pow(x, e, pk.n3)]
